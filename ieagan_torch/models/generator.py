@@ -1,0 +1,191 @@
+"""Generator: BigGAN-deep stack with RRM over class-proxy embeddings (twin of
+``ieagan_tpu/models/generator.py``; reference: model.py:139-487).
+
+NCHW inside; the public ``forward`` returns (B, H, W, 1) as the JAX package
+does. The per-image random degrees of freedom ``rdof`` are an explicit input
+(the JAX model draws them inside, ``generator.py:181``), so callers control
+every random number.
+
+Forward:
+  y = shared[labels]                                (B, shared_dim)
+  y = linear_f([y, rdof])                           (B, 128)   [RRM_prx_G]
+  y = RR_G(y grouped per event)                     (B, 128)
+  z = [y, z]; cond = z                              (B, 256)   [hier]
+  h = linear(z) -> (B, 16ch, 4, 4*H_base)           NCHW, as the reference
+  stages x depth deep-bottleneck GBlocks (ccbn conditioned on cond)
+  out = tanh(conv(relu(bn(h)))) in f32              (B, 256, 768, 1)
+"""
+
+from __future__ import annotations
+
+import functools
+import inspect
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ieagan_torch.models.arch import g_arch
+from ieagan_torch.ops.norm import BatchNorm, ClassCondBatchNorm
+from ieagan_torch.ops.rrm import RelationalReasoning
+from ieagan_torch.ops.spectral import Embedding, Linear, SNConv2d, SNLinear
+
+ACTIVATIONS = {
+    "inplace_relu": F.relu,
+    "relu": F.relu,
+    "leaky_relu": functools.partial(F.leaky_relu, negative_slope=0.2),
+}
+
+
+def upsample_2x(x):
+    """Nearest-neighbour 2x upsample, NCHW (reference F.interpolate
+    scale_factor=2, model.py:338)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class GBlock(nn.Module):
+    """BigGAN-deep generator bottleneck block (reference: model.py:16-71):
+    1x1 -> 3x3 -> 3x3 -> 1x1 convs at in/4 hidden width, ccbn+activation
+    pre-activations, channel-drop shortcut, optional 2x upsample."""
+
+    def __init__(self, in_channels: int, out_channels: int, conv, bn, activation,
+                 upsample: bool = False, channel_ratio: int = 4):
+        super().__init__()
+        hidden = in_channels // channel_ratio
+        self.out_channels = out_channels
+        self.in_channels = in_channels
+        self.activation = activation
+        self.upsample = upsample
+        self.bn1 = bn(in_channels)
+        self.conv1 = conv(in_channels, hidden, 1)
+        self.bn2 = bn(hidden)
+        self.conv2 = conv(hidden, hidden, 3)
+        self.bn3 = bn(hidden)
+        self.conv3 = conv(hidden, hidden, 3)
+        self.bn4 = bn(hidden)
+        self.conv4 = conv(hidden, out_channels, 1)
+
+    def forward(self, x, y, accumulate_standing: bool = False):
+        act = self.activation
+        h = self.conv1(act(self.bn1(x, y, accumulate_standing)))
+        h = act(self.bn2(h, y, accumulate_standing))
+        if self.in_channels != self.out_channels:
+            x = x[:, : self.out_channels]
+        if self.upsample:
+            h = upsample_2x(h)
+            x = upsample_2x(x)
+        h = self.conv2(h)
+        h = self.conv3(act(self.bn3(h, y, accumulate_standing)))
+        h = self.conv4(act(self.bn4(h, y, accumulate_standing)))
+        return h + x
+
+
+class Generator(nn.Module):
+    """The port's Generator; build with ``Generator.from_config(config)``.
+
+    Submodule names follow the JAX package's variable tree (``shared``,
+    ``linear_f``, ``RR_G``, ``linear``, ``blocks_<stage>_<i>``, ``output_bn``,
+    ``output_conv``), so ``models/convert.py`` maps a flax checkpoint onto it
+    name for name. Parameters are allocated empty: call
+    ``reset_parameters(generator)`` or load a state dict.
+    """
+
+    def __init__(self, G_ch: int = 32, G_depth: int = 2, dim_z: int = 128,
+                 bottom_width: int = 4, H_base: int = 3, resolution: int = 256,
+                 G_attn: str = "0", n_classes: int = 40, shared_dim: int = 128,
+                 rdof_dim: int = 4, hier: bool = True,
+                 G_activation: str = "inplace_relu", BN_eps: float = 1e-5,
+                 SN_eps: float = 1e-6, num_G_SVs: int = 1, num_G_SV_itrs: int = 1,
+                 RRM_prx_G: bool = True, normalized_proxy_G: bool = False,
+                 prior_embed: bool = False, n_head_G: int = 2, G_param: str = "SN",
+                 norm_style: str = "bn", event_size: int = 40,
+                 fused_attention: bool = False):
+        super().__init__()
+        arch = g_arch(G_ch, G_attn)[resolution]
+        if any(arch["attention"].values()):
+            raise NotImplementedError("G image attention (SA/CBAM/ILA) is not ported")
+        if prior_embed:
+            raise NotImplementedError("prior_embed is not ported")
+        if G_param != "SN":
+            raise NotImplementedError(f"G_param {G_param!r} is not ported")
+        if not hier:
+            raise NotImplementedError("hier=False is not ported")
+        self.arch = arch
+        self.bottom_width = bottom_width
+        self.H_base = H_base
+        self.event_size = event_size
+        self.RRM_prx_G = RRM_prx_G
+        self.normalized_proxy_G = normalized_proxy_G
+        self.activation = ACTIVATIONS[G_activation]
+        shared_dim = shared_dim if shared_dim > 0 else dim_z
+
+        sn = dict(num_svs=num_G_SVs, num_itrs=num_G_SV_itrs, eps=SN_eps)
+        linear = functools.partial(SNLinear, **sn)
+        conv = lambda cin, cout, ksize: SNConv2d(cin, cout, ksize, **sn)
+        cond_dim = (128 if RRM_prx_G else shared_dim) + dim_z
+        # ccbn's linears are bias-free (reference: model.py:264-268)
+        bn = lambda c: ClassCondBatchNorm(
+            c, cond_dim, functools.partial(linear, bias=False), eps=BN_eps,
+            norm_style=norm_style)
+
+        self.shared = Embedding(n_classes, shared_dim)
+        if RRM_prx_G:
+            self.linear_f = linear(shared_dim + rdof_dim, 128)
+            self.RR_G = RelationalReasoning(
+                num_layers=1, input_dim=128, num_heads=n_head_G,
+                dim_feedforward=128, linear=Linear, fused=fused_attention)
+        self.linear = linear(cond_dim, arch["in_channels"][0]
+                             * bottom_width ** 2 * H_base)
+        self.block_names = []
+        for index in range(len(arch["out_channels"])):
+            for g_index in range(G_depth):
+                name = f"blocks_{index}_{g_index}"
+                self.add_module(name, GBlock(
+                    arch["in_channels"][index],
+                    (arch["in_channels"][index] if g_index == 0
+                     else arch["out_channels"][index]),
+                    conv, bn, self.activation,
+                    upsample=arch["upsample"][index] and g_index == G_depth - 1))
+                self.block_names.append(name)
+        self.output_bn = BatchNorm(arch["out_channels"][-1], eps=1e-5)
+        self.output_conv = conv(arch["out_channels"][-1], 1, 3)
+
+    @classmethod
+    def from_config(cls, config: dict) -> "Generator":
+        """Build from a config dict (keys of ``core/config.py``)."""
+        names = inspect.signature(cls).parameters
+        kwargs = {k: v for k, v in config.items() if k in names}
+        kwargs["event_size"] = int(config.get("n_classes", 40))
+        kwargs["fused_attention"] = bool(config.get("use_pallas_attention", False))
+        return cls(**kwargs)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Random init from ``generator``: orthogonal weights, zero biases,
+        normal ``u``, unit gains, zero/one running stats. Each submodule
+        resets only what it owns."""
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+
+    def forward(self, z, y, rdof=None, accumulate_standing: bool = False):
+        """z: (B, dim_z); y: (B,) int labels; rdof: (B, rdof_dim), required
+        when RRM_prx_G. B = events * event_size. Computes in z's dtype with
+        f32 parameters, normalization statistics and tanh, as the JAX
+        package does. Returns (B, H, W, 1) in [-1, 1]."""
+        y_emb = self.shared(y).to(z.dtype)
+        if self.RRM_prx_G:
+            if rdof is None:
+                raise ValueError("RRM_prx_G needs rdof of shape (B, rdof_dim)")
+            y_emb = self.linear_f(torch.cat([y_emb, rdof.to(y_emb.dtype)], dim=-1))
+            y_emb = self.RR_G(y_emb.reshape(-1, self.event_size, 128)).reshape(-1, 128)
+            if self.normalized_proxy_G:
+                y_emb = F.normalize(y_emb, dim=-1, eps=1e-12)
+        cond = torch.cat([y_emb, z.to(y_emb.dtype)], dim=-1)
+        h = self.linear(cond).reshape(
+            cond.shape[0], self.arch["in_channels"][0], self.bottom_width,
+            self.bottom_width * self.H_base)
+        for name in self.block_names:
+            h = getattr(self, name)(h, cond, accumulate_standing)
+        h = self.output_bn(h, accumulate_standing)
+        h = self.output_conv(self.activation(h))
+        return torch.tanh(h.float()).to(h.dtype).permute(0, 2, 3, 1)
