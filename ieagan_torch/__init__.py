@@ -9,10 +9,13 @@ imports ``torch`` and ``numpy`` only: never ``jax``, ``flax``, ``msgpack`` or
 Layer map:
   core/      config surface (own copy of the JAX package's)
   kernels/   CUDA kernels, their build (nvcc + ctypes), wrappers, plain versions
-  ops/       spectral norm, (cc)BN, LayerNorm, attention dispatch, RRM,
-             data-domain norms
-  models/    Generator, arch tables, carry-over of flax checkpoints
-  utils/     flax msgpack reader and checkpoint resolution
+  ops/       spectral norm, (cc)BN, LayerNorm, attention dispatch, SA-GAN
+             image attention, RRM, DiffAugment, data-domain norms
+  models/    Generator, Discriminator, arch tables, carry-over of flax
+             checkpoints
+  losses/    hinge, conditional contrastive, IEA, uniformity
+  train/     the D+G train step, Adam, ortho-reg, the golden step check
+  utils/     flax msgpack reader, checkpoint resolution and weight loading
   deploy/    generator-only inference (the basf2 deployment path)
 """
 

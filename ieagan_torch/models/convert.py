@@ -1,16 +1,18 @@
-"""Carry-over of the JAX package's generator variables into the port.
+"""Carry-over of the JAX package's generator and discriminator variables into
+the port.
 
-The JAX package stores a generator as ``{"params": ..., "state":
-{"spectral": ..., "batch_stats": ...}}`` (``ieagan_tpu/deploy/inference.py``).
-The port's ``Generator`` names its submodules after that tree, so a leaf's
-path carries over unchanged and only the leaf names and layouts map, after the
-conventions of ``ieagan_tpu/models/convert.py``:
+The JAX package stores a model as ``{"params": ..., "state": {"spectral":
+..., "batch_stats": ...}}`` (``ieagan_tpu/utils/checkpoint.py``; D has no
+batch stats). The port's ``Generator`` and ``Discriminator`` name their
+submodules after that tree, so a leaf's path carries over unchanged and only
+the leaf names and layouts map, after the conventions of
+``ieagan_tpu/models/convert.py``:
 
   params     .../kernel (kh, kw, I, O)  -> .../weight (O, I, kh, kw)
              .../kernel (in, out)       -> .../weight (out, in)
-             .../embedding (n, d)       -> .../weight (n, d)
+             .../embedding (n, d)       -> .../weight (n, d)   (SN or not)
              .../scale (LayerNorm)      -> .../weight
-             .../bias, .../gain         -> .../bias, .../gain
+             .../bias, .../gain, .../gamma -> the same names
   spectral   .../u (num_svs, out), .../sv (num_svs,)   -> .../u, .../sv
   batch_stats .../mean, .../var, .../accumulation_counter -> the same names
 """
@@ -40,7 +42,7 @@ def _param_leaf(path: tuple, value: np.ndarray):
             return module + ["weight"], value.T
     elif leaf in ("embedding", "scale"):
         return module + ["weight"], value
-    elif leaf in ("bias", "gain"):
+    elif leaf in ("bias", "gain", "gamma"):
         return module + [leaf], value
     raise KeyError(f"params leaf {'/'.join(path)} with shape {value.shape} "
                    "has no counterpart in the port")
@@ -54,6 +56,17 @@ def generator_state_from_flax(variables: Mapping, template: Mapping | None = Non
     port's ``state_dict()``), it also raises when a key of the template is
     missing, when a converted key is left unused by the template, or when a
     shape differs."""
+    return _state_from_flax(variables, template, "Generator")
+
+
+def discriminator_state_from_flax(variables: Mapping, template: Mapping | None = None) -> dict:
+    """A state dict (numpy arrays, PyTorch layout) for the port's
+    Discriminator from the JAX package's ``{"params", "state"}`` variables,
+    with the checks of ``generator_state_from_flax``."""
+    return _state_from_flax(variables, template, "Discriminator")
+
+
+def _state_from_flax(variables: Mapping, template: Mapping | None, what: str) -> dict:
     extra = set(variables) - {"params", "state"}
     if extra:
         raise KeyError(f"unexpected top-level keys {sorted(extra)}")
@@ -76,7 +89,7 @@ def generator_state_from_flax(variables: Mapping, template: Mapping | None = Non
         missing = sorted(set(template) - set(out))
         unused = sorted(set(out) - set(template))
         if missing or unused:
-            raise KeyError(f"checkpoint does not fit the port's Generator: "
+            raise KeyError(f"checkpoint does not fit the port's {what}: "
                            f"missing {missing[:8]} ({len(missing)}), "
                            f"unused {unused[:8]} ({len(unused)})")
         bad = [k for k in out if tuple(out[k].shape) != tuple(template[k].shape)]

@@ -129,6 +129,26 @@ class SNConv2d(_SpectralNorm):
                         padding=self.padding)
 
 
+class SNEmbedding(_SpectralNorm):
+    """Embedding with spectral norm (reference: SNEmbedding, layers.py:230-259).
+    As the reference does, the (num_embeddings, features) matrix itself is
+    normalized, so ``u`` has length num_embeddings (the JAX package's
+    ``SNEmbed``, ``ieagan_tpu/ops/spectral.py:160-181``)."""
+
+    def __init__(self, num_embeddings: int, features: int, num_svs: int = 1,
+                 num_itrs: int = 1, eps: float = 1e-12):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        self._init_sn(num_embeddings, num_svs, num_itrs, eps)
+
+    def reset_parameters(self, generator=None):
+        nn.init.orthogonal_(self.weight, generator=generator)
+        self._reset_sn(generator)
+
+    def forward(self, y):
+        return F.embedding(y, self.normalized_weight())
+
+
 class Linear(nn.Module):
     """Plain linear, call-compatible with SNLinear (reference: G's RRM
     internals use nn.Linear, model.py:305-313)."""
