@@ -1,7 +1,7 @@
 """Builds the port's CUDA kernels with nvcc at first use and loads them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
-``nvcc`` compiles it in seconds into ``_build/<name>-<hash>.so`` (a directory
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers (the
+sources share ``csrc/*.cuh``), so ``nvcc`` compiles it in seconds into ``_build/<name>-<hash>.so`` (a directory
 that ``.gitignore`` lists), which ``ctypes`` loads. The file name carries a
 hash of the source and the flags, so an edited source is rebuilt and a
 finished build is reused. ``build()`` starts one ``nvcc`` per source, all at
@@ -23,8 +23,10 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -split-compile=0: nvcc runs its optimizer over the kernel instances on all
+# cores (attention_bwd.cu holds 18 instances of a large kernel).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -51,8 +53,12 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel ``name`` is built: the file name hashes its source, every
+    header under ``csrc/`` (the sources share them) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

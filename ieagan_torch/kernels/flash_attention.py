@@ -31,7 +31,12 @@ import torch
 
 from ieagan_torch.kernels import build
 
-MAX_HEAD_DIM = 128  # the kernel's register tile holds dk, dv <= 128
+MAX_HEAD_DIM = 128  # the kernels' register tiles hold dk, dv <= 128
+# The kernels pad each head width up to one of PADDED_WIDTHS (zero columns
+# change no product); every (padded dk, padded dv) pair has an instance of its
+# own (``IEAGAN_ATTENTION_WIDTHS`` in ``csrc/mma_tile.cuh``), so any
+# dk, dv <= 128 runs.
+PADDED_WIDTHS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: ctypes.CDLL | None = None
 _LIB_BWD: ctypes.CDLL | None = None
@@ -48,14 +53,19 @@ def attention_fwd_plain(q, k, v, scale: float):
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, scale: float):
-    """Plain PyTorch B2: recompute ``p`` in f32 from ``lse``, f32 products,
-    gradients cast to the input types. Used for CPU tensors and as the
-    kernel's reference."""
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    """Plain PyTorch B2: recompute ``p`` from ``lse``, products and
+    statistics in f32 (f64 for f64 inputs), gradients cast to the input
+    types. Used for CPU tensors and as the kernel's reference, which
+    ``chip_smoke.py`` takes in f64: at D's image-attention site (scale 1,
+    |s| ~ 25) dS = p (dP - delta) multiplies the rounding of the score s by
+    |dP - delta|, and the function in f32 is further from f64 than the
+    tensor-core kernel is."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.to(acc)[..., None])
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    delta = (dof * o.to(acc)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
@@ -89,6 +99,14 @@ def _bwd_kernel_library() -> ctypes.CDLL:
     if _LIB_BWD is None:
         _LIB_BWD = _library("attention_bwd", "ieagan_attention_bwd", 10, 5)
     return _LIB_BWD
+
+
+def padded_width(d: int) -> int:
+    """The width a head of width ``d`` is padded to in the kernels."""
+    for width in PADDED_WIDTHS:
+        if d <= width:
+            return width
+    raise ValueError(f"the attention kernel takes dk, dv <= {MAX_HEAD_DIM}; got {d}")
 
 
 def _check(q, k, v):
@@ -128,8 +146,8 @@ def attention_fwd(q, k, v, scale: float):
     """B1 forward: ``(o (B, Lq, dv) in q's type, lse (B, Lq) f32)``.
 
     CUDA tensors go to the kernel, which takes f32 or bf16, ``dk, dv <= 128``
-    and contiguous tensors, and raises on anything else. CPU tensors go to
-    ``attention_fwd_plain``. ``attention_fwd.launches`` counts kernel
+    (each padded to 32, 64 or 128) and contiguous tensors, and raises on
+    anything else. CPU tensors go to ``attention_fwd_plain``. ``attention_fwd.launches`` counts kernel
     launches. It raises when grad mode is on and an input requires grad:
     the kernel's output carries no gradient, so differentiate through
     ``FlashAttention`` instead."""
@@ -168,7 +186,8 @@ def attention_bwd(q, k, v, o, lse, do, scale: float):
     CUDA tensors go to the kernel, which takes what B1 takes (f32 or bf16,
     ``dk, dv <= 128``, contiguous) and raises on anything else. CPU tensors go
     to ``attention_bwd_plain``. ``attention_bwd.launches`` counts kernel
-    launches (one per call: three CUDA kernels back to back)."""
+    launches (one per call: two CUDA kernels back to back, the delta pass
+    and the dK/dV and dQ pass)."""
     _check(q, k, v)
     b, lq, dk = q.shape
     lkv, dv = v.shape[1], v.shape[2]
