@@ -34,7 +34,24 @@ Phases, each timed on a line of its own:
    state and draws, and the time per step;
 6. golden step: the first step from ``copy16000`` on the golden inputs and
    draws against the JAX package's numbers in
-   ``ieagan_torch/train/golden_step_copy16000.json``.
+   ``ieagan_torch/train/golden_step_copy16000.json``;
+7. training entry point: ``train/driver.py::run`` at the flagship width under
+   the default bfloat16 policy, on the debug path, into a temporary run dir:
+   four steps with logs, singular values and checkpoints every two steps,
+   then a resume to step six with a ``torch.profiler`` trace of steps five
+   and six; the run dir's files, every component of ``copy2``/``copy4`` read
+   back bit-equal to the state in memory (Adam's moments and counts too),
+   the resumed ``itr`` and counts, B1/B2 launches per step with bf16 inputs,
+   finite metrics; time per step, peak memory, seconds per save, and the
+   trace's top device ops and the device's idle share; then the dataset
+   path: a PNG event tree loaded onto the card (batches equal to the host's)
+   and two driver steps on it with the uint8 upload;
+8. bf16 against f32: one step from ``copy16000`` under each policy for each
+   of three seeds of draws, capturing the gradients; the bf16 step within
+   the stated bounds of the f32 step on the same draws (metrics, module
+   gradient norms, per-leaf cosine) and outside them against the f32 step
+   on other draws; two yardsticks printed beside them (the f32 step with
+   TF32, and bf16 against f32 with D's learning rate 0).
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -106,6 +123,37 @@ TRAIN_STEPS = 3
 # phase's real pass and the G phase's pass (the D phase's fake embedding
 # enters no D loss), RR_G in the G phase.
 B1_PER_STEP, B2_PER_STEP = 2 + 3 * 2, 3 + 2 + 1
+# The driver phase (7): the JAX driver's debug run at the flagship width.
+DRIVER_RUN = dict(debug=True, debug_batches=4, num_epochs=1, log_interval=1,
+                  sv_log_interval=2, save_every=2, test_every=10 ** 6, trace_start=5,
+                  trace_steps=1)
+DRIVER_METRICS = ("D_loss_real", "D_loss_fake", "unif_loss_d", "iea_loss", "unif_loss_g",
+                  "G_loss")
+# bf16 against f32 (phase 8): one step from copy16000 under each policy on the
+# same reals, for each seed of BF16_SEEDS's draws. Each pair is read by
+# step_gap: the six metrics, and per network the gradients' module norms and
+# per-leaf cosines. A bf16 step and the f32 step on the same draws (sound)
+# must be within every bound of BF16_CHECKS; a bf16 step against the f32 step
+# on another seed's draws (the control: the right inputs and weights,
+# gradients of the right size in another direction) must break each of them.
+# The bounds sit between the two on the H100 (PERF.md, PR 7 findings):
+#  * each metric within 0.08 |f32| + 1e-3: sound at most 3.8% (D_loss_fake),
+#    every control off by 34% or more in some metric;
+#  * D: module norms within 15% (sound at most 10.0%, controls 20% or more),
+#    per-leaf cosine median >= 0.995 (sound 0.9986 or more, controls 0.989
+#    or less);
+#  * G: per-leaf cosine median >= 0.2 (sound 0.37-0.52, controls 0.04 or
+#    less). G's gradient at copy16000 is dominated by rounding: the f32 step
+#    with TF32 convolutions alone takes its cosine median to 0.93 and its
+#    module norms 15% off (D's: 1.0000 and 0.2%), so bf16, 8x coarser, takes
+#    them to 0.37-0.52 and 44-59%. G's module norms under bf16 (44-59% off,
+#    69% with D's learning rate 0) and under other draws (34-152%) overlap,
+#    so they are printed, not bounded.
+BF16_SEEDS = (8, 9, 10)
+BF16_CHECKS = ("metrics", "G cosine", "D norms", "D cosine")
+BF16_METRIC_RTOL, BF16_METRIC_ATOL = 0.08, 1e-3
+BF16_D_NORM_RTOL = 0.15
+BF16_COS_MEDIAN_MIN = {"G": 0.2, "D": 0.995}
 
 
 def phase(name, t0):
@@ -543,6 +591,403 @@ def golden_step_phase(torch, np):
         raise SystemExit("the card's train step disagrees with golden_step_copy16000.json")
 
 
+def trace_summary(path, top=10):
+    """From a Chrome trace of ``torch.profiler``: the ``top`` device kernels by
+    total time (ms, calls), the traced window's length (ms) and the share of
+    it in which no kernel, copy or memset ran on the device."""
+    with open(path) as fp:
+        events = [e for e in json.load(fp)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise SystemExit(f"{path}: the trace holds no device event (CUPTI tracing failed)")
+    totals = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            ms, n = totals.get(e["name"], (0.0, 0))
+            totals[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, cursor = 0.0, start
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], cursor), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            cursor = hi
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])[:top]
+    return ranked, (end - start) / 1e3, 1.0 - busy / (end - start)
+
+
+def data_path(torch, np, driver, root, cfg):
+    """Phase 7, dataset path: a PNG event tree in the reference layout
+    (40 sensor dirs of 250x768 uint8 images, sparse as PXD data), loaded by
+    the port's loader onto the card (pinned batches, copied on the loader's
+    stream) and compared with its host batches; then two driver steps on it
+    with the uint8 upload and the on-device transform."""
+    from PIL import Image
+    from ieagan_torch.data import load_dataset
+    from ieagan_torch.data.dataset import event_transform_stack
+    from ieagan_torch.ops.image_norm import device_event_transform
+    from ieagan_torch.utils.run_dirs import initialize_directories
+
+    tree = os.path.join(root, "pxd")
+    rng = np.random.default_rng(3)
+    shape = (cfg["resolution"] - 6, cfg["resolution"] * cfg["H_base"])  # 250 x 768
+    for s in range(cfg["n_classes"]):
+        os.makedirs(os.path.join(tree, f"sensor_{s:02d}"))
+        for e in range(2):
+            img = np.where(rng.random(shape) < 0.01, rng.integers(7, 255, shape), 0)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(tree, f"sensor_{s:02d}", f"event_{e}.png"))
+    for raw in (False, True):
+        loader = load_dataset(tree, num_workers=4, shuffle=True, seed=1, events_per_batch=1,
+                              raw_uint8=raw)
+        host = list(loader)
+        loader.device = "cuda"
+        loader.set_epoch(0)
+        t = time.perf_counter()
+        dev = list(loader)
+        torch.cuda.synchronize()
+        per_batch = (time.perf_counter() - t) / len(dev)
+        if len(dev) != len(host) or not all(
+                x.is_cuda and np.array_equal(x.cpu().numpy(), a)
+                and np.array_equal(y.cpu().numpy(), b) for (x, y), (a, b) in zip(dev, host)):
+            raise SystemExit(f"the loader's batches on the card differ from its host batches "
+                             f"(raw_uint8={raw})")
+        if raw:
+            err = max(float((device_event_transform(x, None, 0.0).cpu()
+                             - torch.from_numpy(event_transform_stack(a, None, 0.0))).abs().max())
+                      for (x, _), (a, _) in zip(dev, host))
+            if not err <= 2e-6:
+                raise SystemExit(f"device_event_transform on the card: {err:.3e} from the host "
+                                 "chain (bound 2e-6)")
+        print(f"loader on the card (raw_uint8={raw}): {len(dev)} batches equal to the host's, "
+              f"{per_batch * 1e3:.1f} ms per batch of {host[0][0].shape[0]} decoded images"
+              + (f"; device transform within {err:.1e} of the host chain" if raw else ""),
+              flush=True)
+    dcfg = dict(cfg, outputroot=root, run_name="data", debug=False, dataroot=tree,
+                device_transform=True, num_workers=4, save_every=10 ** 6)
+    initialize_directories(dcfg)
+    state, sd = driver.run(dcfg)
+    if (state.itr, sd["epoch"]) != (2 // cfg["events_per_batch"], 1):
+        raise SystemExit(f"dataset run: itr {state.itr}, state_dict {sd}")
+    print(f"dataset run: {state.itr} steps over the PNG tree with the uint8 upload and the "
+          "on-device transform", flush=True)
+
+
+def driver_phase(torch, np):
+    """Phase 7: the training entry point as a user runs it (bf16 policy)."""
+    import tempfile
+    import ieagan_torch.kernels.flash_attention as fa
+    import ieagan_torch.train.driver as driver
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.models.convert import (discriminator_state_to_flax,
+                                             generator_state_to_flax, optimizer_state_to_flax)
+    from ieagan_torch.utils.flax_msgpack import read_checkpoint
+    from ieagan_torch.utils.run_dirs import initialize_directories
+
+    def trees(state):
+        return {"G": generator_state_to_flax(state.G), "D": discriminator_state_to_flax(state.D),
+                "G_ema": generator_state_to_flax(state.G_ema),
+                "G_optim": optimizer_state_to_flax(state.opt_G, state.G),
+                "D_optim": optimizer_state_to_flax(state.opt_D, state.D)}
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    def bit_equal(weights_dir, tag, want):
+        """Every leaf of every component of ``tag`` equal to ``want``'s."""
+        n = 0
+        for base, tree in want.items():
+            got = dict(flat(read_checkpoint(os.path.join(weights_dir, f"{base}_{tag}.msgpack"))))
+            exp = dict(flat(tree))
+            if got.keys() != exp.keys():
+                raise SystemExit(f"{base}_{tag}: leaves differ from the state's")
+            for k, v in exp.items():
+                if got[k].dtype != v.dtype or got[k].shape != v.shape or not np.array_equal(
+                        got[k], v):
+                    raise SystemExit(f"{base}_{tag}: leaf {k} differs from the state's")
+            n += len(exp)
+        return n
+
+    # Observation only: the step, the checkpoint writer and the fused
+    # attention's autograd function are wrapped to record per-step launches,
+    # times and the kernels' input types.
+    steps, saves, dtypes, snaps = [], [], set(), {}
+    make_step, save_ckpt = driver.make_train_step, driver.save_checkpoint
+    fwd, bwd = fa.attention_fwd, fa.attention_bwd
+
+    def counted_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(state, x, y, generator=None):
+            snapshots = "data run" not in snaps
+            if state.itr == 4 and snapshots:  # the resumed run's state, loaded from copy4
+                snaps["loaded4"] = trees(state)
+            b1, b2 = fwd.launches, bwd.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y, generator)
+            torch.cuda.synchronize()
+            steps.append({"itr": state.itr, "ms": (time.perf_counter() - t) * 1e3,
+                          "B1": fwd.launches - b1, "B2": bwd.launches - b2,
+                          **{k: v for k, v in m.items() if not k.startswith("_")}})
+            if state.itr == 2 and snapshots:
+                snaps["after2"] = trees(state)
+            return m
+        return counted
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        save_ckpt(*args, **kwargs)
+        saves.append(time.perf_counter() - t)
+
+    flash_fwd, flash_bwd = fa.FlashAttention.forward, fa.FlashAttention.backward
+
+    def seen_fwd(ctx, q, *args):
+        dtypes.add(str(q.dtype))
+        return flash_fwd(ctx, q, *args)
+
+    def seen_bwd(ctx, do):
+        dtypes.add(str(do.dtype))
+        return flash_bwd(ctx, do)
+
+    driver.make_train_step, driver.save_checkpoint = counted_make_train_step, timed_save
+    fa.FlashAttention.forward, fa.FlashAttention.backward = (staticmethod(seen_fwd),
+                                                             staticmethod(seen_bwd))
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            # the first run is untraced; the resume traces steps 5 and 6
+            cfg = dict(DEFAULT_CONFIG, outputroot=root, run_name="smoke", **DRIVER_RUN)
+            initialize_directories(cfg)
+            torch.cuda.reset_peak_memory_stats()
+            fwd.launches = bwd.launches = 0
+            t0 = time.perf_counter()
+            state, sd = driver.run(cfg)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = {"B1": fwd.launches, "B2": bwd.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            weights = os.path.join(root, "smoke", "weights")
+            n2 = bit_equal(weights, "copy2", snaps.pop("after2"))
+            final4 = trees(state)
+            n4 = bit_equal(weights, "copy4", final4)
+            if (state.itr, sd["itr"], sd["epoch"], state.opt_G.count, state.opt_D.sched_count) \
+                    != (4, 4, 1, 4, 4):
+                raise SystemExit(f"driver run: itr {state.itr}, state_dict {sd}, counts "
+                                 f"{state.opt_G.count}/{state.opt_D.sched_count}")
+            files = set()
+            for dirpath, _, names in os.walk(os.path.join(root, "smoke")):
+                files |= {os.path.relpath(os.path.join(dirpath, n), os.path.join(root, "smoke"))
+                          for n in names}
+            n_sv = sum(1 for m in (state.G, state.D) for k, _ in m.named_buffers()
+                       if k.endswith(".sv"))
+            try:
+                import matplotlib  # noqa: F401
+                heatmaps = True
+            except ImportError:
+                heatmaps = False
+            expected = {f"logs/{m}.log" for m in DRIVER_METRICS + ("sec_per_itr",)}
+            expected |= {"logs/metalog.txt"}
+            for itr in (2, 4):
+                expected |= {f"weights/{b}_copy{itr}.msgpack"
+                             for b in ("G", "D", "G_optim", "D_optim", "G_ema")}
+                expected |= {f"weights/state_dict_copy{itr}.json",
+                             f"samples/fixed_samples{itr}.jpg", f"samples/sample_sheet{itr}.jpg"}
+                if heatmaps:
+                    expected |= {f"samples/sim_heatmap_G{itr}.jpg",
+                                 f"samples/sim_heatmap_D{itr}.jpg"}
+            sv_logs = {f for f in files if f.startswith("logs/") and f.endswith("_sv.log")}
+            config_copies = {f for f in files if "/" not in f and f.endswith("_config.json")}
+            rest = files - sv_logs - config_copies
+            if rest != expected or len(sv_logs) != n_sv or len(config_copies) != 1:
+                raise SystemExit(f"run dir: unexpected {sorted(rest - expected)}, missing "
+                                 f"{sorted(expected - rest)}, {len(sv_logs)} sv logs for {n_sv} "
+                                 f"spectral-norm layers")
+            print(f"driver run: {run_s:.1f} s for 4 steps and 3 saves, run dir as the JAX "
+                  f"driver writes it ({len(files)} files, {len(sv_logs)} sv logs"
+                  + ("" if heatmaps else "; no matplotlib here, so no similarity heatmaps")
+                  + f"); copy2 and copy4 read back bit-equal ({n2} and {n4} leaves)", flush=True)
+            del state
+
+            rcfg = dict(cfg, resume=True, num_epochs=2, stop_after=6,
+                        trace_dir=os.path.join(root, "trace"))
+            fwd.launches = bwd.launches = 0
+            state, sd = driver.run(rcfg)
+            torch.cuda.synchronize()
+            launches = {k: launches[k] + v for k, v in
+                        (("B1", fwd.launches), ("B2", bwd.launches))}
+            bit_equal(weights, "copy4", snaps.pop("loaded4"))
+            if (state.itr, sd["itr"], sd["epoch"], state.opt_G.count, state.opt_G.sched_count,
+                    state.opt_D.count) != (6, 6, 2, 6, 6, 6):
+                raise SystemExit(f"resume: itr {state.itr}, state_dict {sd}, counts "
+                                 f"{state.opt_G.count}/{state.opt_G.sched_count}/"
+                                 f"{state.opt_D.count}")
+            print(f"resume from copy4: itr {state.itr}, epoch {sd['epoch']}, Adam counts "
+                  f"G {state.opt_G.count} D {state.opt_D.count}; copy4 as loaded equals the "
+                  "state the first run saved", flush=True)
+            trace = os.path.join(root, "trace", "trace_itr5.json")
+            ranked, window_ms, idle = trace_summary(trace)
+            print(f"trace of steps 5-6: window {window_ms:.1f} ms, device idle share "
+                  f"{idle:.4f}; top device kernels (total ms, calls): " + json.dumps(
+                      [(name[:90], round(ms, 3), n) for name, (ms, n) in ranked]), flush=True)
+            del state
+            snaps["data run"] = True
+            data_path(torch, np, driver, root, dict(DEFAULT_CONFIG, **DRIVER_RUN))
+    finally:
+        driver.make_train_step, driver.save_checkpoint = make_step, save_ckpt
+        fa.FlashAttention.forward = staticmethod(flash_fwd)
+        fa.FlashAttention.backward = staticmethod(flash_bwd)
+        torch.cuda.empty_cache()
+
+    for s in steps:
+        print("driver step " + json.dumps(s), flush=True)
+        if not all(np.isfinite(s[k]) for k in DRIVER_METRICS):
+            raise SystemExit(f"driver step {s['itr']}: non-finite metric")
+        if (s["B1"], s["B2"]) != (B1_PER_STEP, B2_PER_STEP):
+            raise SystemExit(f"driver step {s['itr']}: B1/B2 launched {s['B1']}/{s['B2']}, "
+                             f"expected {B1_PER_STEP}/{B2_PER_STEP}")
+    if [s["itr"] for s in steps] != [1, 2, 3, 4, 5, 6] + list(range(1, len(steps) - 5)):
+        raise SystemExit(f"driver steps {[s['itr'] for s in steps]}")
+    if dtypes != {"torch.bfloat16"}:
+        raise SystemExit(f"the attention kernels took {dtypes} on the bf16 driver path")
+    steady = [s["ms"] for s in steps[1:4]]
+    step_ms = sum(steady) / len(steady)
+    print(f"driver bf16 step: {step_ms:.1f} ms per step (mean of steps 2-4, host clock "
+          f"after synchronize; step 1 {steps[0]['ms']:.1f} ms); peak device memory "
+          f"{peak:.2f} GiB; checkpoint save {np.median(saves):.2f} s (median of {len(saves)}); "
+          f"B1/B2 launches {launches['B1']}/{launches['B2']} in the two runs, all bf16",
+          flush=True)
+    return launches, step_ms, peak
+
+
+def step_gap(torch, np, a, b):
+    """What separates the step ``a`` from the step ``b`` (metrics with
+    ``_grads_G``/``_grads_D``): the six metrics of both and the largest
+    |a - b| / |b|, and per network the largest relative gap of a module's
+    gradient norm (module: the name's first part) and the median of the
+    gradients' per-leaf cosines over leaves whose gradient in ``b`` is not
+    null (norm >= 1e-5: conv biases feeding batch norms), with the three
+    least."""
+    out = {"metrics": {k: [a[k], b[k]] for k in DRIVER_METRICS},
+           "metric_rel": max(abs(a[k] - b[k]) / abs(b[k]) for k in DRIVER_METRICS
+                             if b[k] != 0)}
+    for net in ("G", "D"):
+        ga, gb = a[f"_grads_{net}"], b[f"_grads_{net}"]
+        sq_a, sq_b, cos = {}, {}, {}
+        for name, vb in gb.items():
+            va, vb = ga[name].double().flatten(), vb.double().flatten()
+            top = name.split(".")[0]
+            na, nb = float(va.norm()), float(vb.norm())
+            sq_a[top] = sq_a.get(top, 0.0) + na * na
+            sq_b[top] = sq_b.get(top, 0.0) + nb * nb
+            if nb >= 1e-5:
+                cos[name] = float(va @ vb) / max(na * nb, 1e-30)
+        out[f"{net}_norm_rel"] = float(max(abs(np.sqrt(sq_a[k]) - np.sqrt(v)) / np.sqrt(v)
+                                           for k, v in sq_b.items() if v > 0))
+        out[f"{net}_cos_median"] = float(np.median(list(cos.values())))
+        out[f"{net}_cos_least"] = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    return out
+
+
+def gap_breaks(gap):
+    """The bounds of phase 8 (BF16_CHECKS) that the pair ``gap`` breaks."""
+    a_b = gap["metrics"].values()
+    checks = {"metrics": all(abs(a - b) <= BF16_METRIC_RTOL * abs(b) + BF16_METRIC_ATOL
+                             for a, b in a_b)}
+    checks["D norms"] = gap["D_norm_rel"] <= BF16_D_NORM_RTOL
+    for net in ("G", "D"):
+        checks[f"{net} cosine"] = gap[f"{net}_cos_median"] >= BF16_COS_MEDIAN_MIN[net]
+    return [k for k in BF16_CHECKS if not checks[k]]
+
+
+def phase8_inputs(torch, es=40):
+    """Phase 8's reals (uniform in [-1, 1]) and labels, one event."""
+    gen = torch.Generator(device="cuda").manual_seed(BF16_SEEDS[0])
+    x = torch.rand((es, 256, 768, 1), generator=gen, device="cuda") * 2 - 1
+    return x, torch.randperm(es, generator=gen, device="cuda")
+
+
+def phase8_draws(torch, seed, es=40):
+    """A draw schedule of one step: the fakes' DiffAugment draws at bf16's
+    granularity (exact in f32 as well), the reals' in f32."""
+    from ieagan_torch.ops.diff_aug import sample_diff_aug_draws
+
+    gen = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    draw = lambda n: torch.randn((es, n), generator=gen, device="cuda")
+    aug = lambda dtype: sample_diff_aug_draws(gen, es, 256, 768, device="cuda", dtype=dtype)
+    return [draw(128), draw(4), aug(torch.bfloat16), aug(torch.float32), draw(128), draw(4),
+            aug(torch.bfloat16)]
+
+
+def phase8_step(torch, np, x, y, schedule, dtype, cfg):
+    """One step from copy16000 in ``dtype`` with ``cfg``, gradients captured."""
+    from ieagan_torch.train.step import make_train_step, restore_train_state
+
+    state = restore_train_state(CHECKPOINT, "copy16000", config=cfg, device="cuda",
+                                compute_dtype=dtype)
+    m = make_train_step(state.G, state.D, cfg, draw_schedule=schedule,
+                        capture_grads=True)(state, x, y)
+    if not all(np.isfinite(m[k]) for k in DRIVER_METRICS):
+        raise SystemExit(f"the {dtype} step: non-finite metric")
+    del state
+    torch.cuda.empty_cache()
+    return m
+
+
+def bf16_vs_f32_phase(torch, np):
+    """Phase 8: one step from copy16000 under each policy, per seed of draws;
+    each bf16 step against the f32 step on its own draws and on another
+    seed's."""
+    x, y = phase8_inputs(torch)
+    steps = {}
+    for seed in BF16_SEEDS:
+        schedule = phase8_draws(torch, seed)
+        for dtype in (torch.bfloat16, torch.float32):
+            steps[(seed, dtype)] = phase8_step(torch, np, x, y, schedule, dtype, {})
+    faults = []
+    for s_b16 in BF16_SEEDS:
+        for s_f32 in BF16_SEEDS:
+            gap = step_gap(torch, np, steps[(s_b16, torch.bfloat16)],
+                           steps[(s_f32, torch.float32)])
+            broken = gap_breaks(gap)
+            sound = s_b16 == s_f32
+            print(f"bf16 step on draws {s_b16} vs f32 step on draws {s_f32} "
+                  f"({'sound' if sound else 'control'}): " + json.dumps(gap)
+                  + f"; breaks {broken}", flush=True)
+            if sound and broken:
+                faults.append(f"the bf16 step on draws {s_b16} breaks {broken}")
+            kept = sorted(set(BF16_CHECKS) - set(broken))
+            if not sound and kept:
+                faults.append(f"the control {s_b16}/{s_f32} keeps {kept}")
+    # Yardsticks on the first draws, printed: how far rounding in the f32
+    # step's convolutions and matmuls alone (TF32, 8x finer than bf16) moves
+    # it, and the bf16 step against the f32 step with D left unchanged by
+    # its update (D_lr 0), so that G's gradient is taken through the same D.
+    first = BF16_SEEDS[0]
+    schedule = phase8_draws(torch, first)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = phase8_step(torch, np, x, y, schedule, torch.float32, {})
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    print("yardstick, f32 step with TF32 vs f32 step on draws %d: " % first + json.dumps(
+        step_gap(torch, np, tf32, steps[(first, torch.float32)])), flush=True)
+    frozen = {"D_lr": 0.0}
+    print("yardstick, bf16 vs f32 step with D_lr 0 on draws %d: " % first + json.dumps(
+        step_gap(torch, np, phase8_step(torch, np, x, y, schedule, torch.bfloat16, frozen),
+                 phase8_step(torch, np, x, y, schedule, torch.float32, frozen))), flush=True)
+    print(f"phase 8 bounds: metrics |bf16 - f32| <= {BF16_METRIC_RTOL} |f32| + "
+          f"{BF16_METRIC_ATOL}; D module gradient norms rel {BF16_D_NORM_RTOL}; per-leaf "
+          f"cosine median G >= {BF16_COS_MEDIAN_MIN['G']}, D >= {BF16_COS_MEDIAN_MIN['D']}",
+          flush=True)
+    if faults:
+        raise SystemExit("phase 8: " + "; ".join(faults))
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -596,10 +1041,22 @@ def main():
     golden_step_phase(torch, np)
     phase("golden step", t0)
 
+    t0 = time.perf_counter()
+    driver_launches, driver_ms, driver_peak = driver_phase(torch, np)
+    phase("training entry point", t0)
+
+    t0 = time.perf_counter()
+    bf16_vs_f32_phase(torch, np)
+    phase("bf16 vs f32", t0)
+
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
                            and r["dtype"] == "float32")
     b1, b2 = pick(rows), pick(bwd_rows)
+    # the same site in bf16, the type the driver path runs it in
+    pick16 = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
+                             and r["dtype"] == "bfloat16")
+    b1h, b2h = pick16(rows), pick16(bwd_rows)
     kernels = [{
         "name": "attention_fwd (B1)", "route": "cuda",
         "source": "ieagan_torch/kernels/csrc/attention_fwd.cu",
@@ -608,6 +1065,10 @@ def main():
         "max_abs_err": b1["max_abs_err_o"], "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
         "site": "D_SA f32 " + "x".join(map(str, b1["shape"])),
+        "launches_driver": driver_launches["B1"],
+        "bf16": {"max_abs_err": b1h["max_abs_err_o"], "ms": b1h["ms"],
+                 "plain_ms": b1h["plain_ms"], "bound_ms": b1h["bound_ms"],
+                 "bound_by": b1h["bound_by"], "library_ms": b1h["library_ms"]},
     }, {
         "name": "attention_bwd (B2)", "route": "cuda",
         "source": "ieagan_torch/kernels/csrc/attention_bwd.cu",
@@ -617,9 +1078,15 @@ def main():
         "ms": b2["ms"], "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"], "library_ms": b2["library_ms"],
         "site": "D_SA f32 " + "x".join(map(str, b2["shape"])),
+        "launches_driver": driver_launches["B2"],
+        "bf16": {"max_abs_err": max(b2h["max_abs_err_dq"], b2h["max_abs_err_dk"],
+                                    b2h["max_abs_err_dv"]),
+                 "ms": b2h["ms"], "plain_ms": b2h["plain_ms"], "bound_ms": b2h["bound_ms"],
+                 "bound_by": b2h["bound_by"], "library_ms": b2h["library_ms"]},
     }]
-    print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms, "
-          f"peak {peak:.2f} GiB)", flush=True)
+    print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
+          f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
+          f"{driver_peak:.2f} GiB)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

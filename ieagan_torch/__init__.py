@@ -7,15 +7,19 @@ imports ``torch`` and ``numpy`` only: never ``jax``, ``flax``, ``msgpack`` or
 ``sm_90a`` under ``kernels/csrc``; each has a plain PyTorch version beside it.
 
 Layer map:
-  core/      config surface (own copy of the JAX package's)
+  core/      config surface (own copy of the JAX package's), dtype policy
   kernels/   CUDA kernels, their build (nvcc + ctypes), wrappers, plain versions
   ops/       spectral norm, (cc)BN, LayerNorm, attention dispatch, SA-GAN
              image attention, RRM, DiffAugment, data-domain norms
   models/    Generator, Discriminator, arch tables, carry-over of flax
-             checkpoints
+             checkpoints and optimizer state, both ways
   losses/    hinge, conditional contrastive, IEA, uniformity
-  train/     the D+G train step, Adam, ortho-reg, the golden step check
-  utils/     flax msgpack reader, checkpoint resolution and weight loading
+  data/      event dataset over the PNG tree, transforms, threaded loader
+  train/     the D+G train step, optax-equivalent optimizers and schedules,
+             ortho-reg, the run driver and its CLI (``train_torch.py``), the
+             golden step check
+  utils/     flax msgpack reader/writer, checkpoints, logs, run dirs, plots,
+             sampling
   deploy/    generator-only inference (the basf2 deployment path)
 """
 

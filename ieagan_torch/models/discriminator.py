@@ -158,14 +158,16 @@ class Discriminator(nn.Module):
 
     def forward(self, x, y):
         """x: (B, H, W, 1) images in [-1, 1]; y: (B,) int labels, B a
-        multiple of event_size. Returns ``(proxy (B, hyper), embed (B, hyper),
+        multiple of event_size. Computes in x's dtype with f32 parameters (the
+        train step casts the reals to the compute type, where the JAX package's
+        D casts its input). Returns ``(proxy (B, hyper), embed (B, hyper),
         out (B,))``."""
         h = self.input_conv(x.permute(0, 3, 1, 2))
         for name in self.layer_names:
             h = getattr(self, name)(h)
         h = torch.sum(self.activation(h), dim=(2, 3))
         out = self.linear0(h).squeeze(-1)
-        proxy = self.embed(y)
+        proxy = self.embed(y).to(h.dtype)  # in the compute type, as the JAX SNEmbed
         if self.RRM_embed:
             top = h.shape[-1]
             h = self.RR_D(h.reshape(-1, self.event_size, top)).reshape(-1, top)

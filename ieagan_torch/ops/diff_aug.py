@@ -12,10 +12,16 @@ input, a dict of per-image tensors of shape (B,):
 
 ``sample_diff_aug_draws`` makes them from a ``torch.Generator``, so the step
 controls every random number and a test can hand both frameworks the same
-draws. Layout NHWC, as the images the generator returns.
+draws. The JAX package draws the three colour factors in the image's dtype
+(``ieagan_tpu/ops/diff_aug.py:21,28,35``): under the bfloat16 policy the
+fakes take bfloat16 draws, multiples of 2**-7, and the f32 reals f32 draws;
+``dtype`` gives the port's draws the same granularity. Layout NHWC, as the
+images the generator returns.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -33,12 +39,23 @@ def _policies(policy: str) -> list[str]:
     return [p for p in policy.split(",") if p] if policy else []
 
 
+def _uniform(generator, b: int, device, dtype: torch.dtype):
+    """U[0, 1) in ``dtype``: f32 from ``torch.rand``; a narrower float type
+    as ``jax.random.uniform`` draws it, a multiple of 2**-mantissa bits."""
+    if dtype == torch.float32:
+        return torch.rand((b,), generator=generator, device=device)
+    bits = round(-math.log2(torch.finfo(dtype).eps))
+    k = torch.randint(0, 1 << bits, (b,), generator=generator, device=device)
+    return k.to(dtype) * 2.0 ** -bits
+
+
 def sample_diff_aug_draws(generator: torch.Generator | None, b: int, h: int, w: int,
-                          policy: str = "color,translation,cutout", device="cpu") -> dict:
-    """The draws ``diff_augment`` needs for a (b, h, w, c) batch under
-    ``policy``, from ``generator`` on ``device``."""
+                          policy: str = "color,translation,cutout", device="cpu",
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """The draws ``diff_augment`` needs for a (b, h, w, c) batch of
+    ``dtype`` images under ``policy``, from ``generator`` on ``device``."""
     draws = {}
-    uniform = lambda: torch.rand((b,), generator=generator, device=device)
+    uniform = lambda: _uniform(generator, b, device, dtype)
     for p in _policies(policy):
         if p == "color":
             draws["brightness"] = uniform() - 0.5

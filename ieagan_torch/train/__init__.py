@@ -1,1 +1,2 @@
-"""Training: the fused D+G step, its optimizers and orthogonal regularization."""
+"""Training: the D+G train step, its optimizers and schedules, ortho-reg, the
+run driver and its CLI, and the golden step check."""

@@ -26,8 +26,18 @@ Random draws come from the caller's ``torch.Generator`` or, for tests and
 golden checks, from ``draw_schedule``, consumed in call order: per D
 accumulation z, rdof (with RRM_prx_G), the fakes' DiffAugment draws and the
 reals' (with diff_aug / diff_aug_real); then per G accumulation z, rdof and
-the fakes' draws. The step computes in float32; the JAX driver's bfloat16
-policy is not ported yet.
+the fakes' draws.
+
+The step computes in the state's compute type (``core/precision.py``), as
+the JAX package's modules built with the policy's dtype do: z is drawn in f32
+and cast (``ieagan_tpu/train/step.py:194``, ``generator.py:201``), rdof is
+cast by G, the reals are augmented in f32 with f32 draws and cast at D's
+input, the fakes are augmented in the compute type with draws of its
+granularity; batch-norm moments, softmax statistics and losses stay f32, and
+parameters, their gradients, Adam and the EMA are f32. The learning-rate
+schedule belongs to the step, as the JAX package's scheduled optimizer does,
+and is handed to each optimizer step; the state's optimizers keep the moments
+and counts.
 """
 
 from __future__ import annotations
@@ -36,18 +46,17 @@ import copy
 import dataclasses
 from typing import Iterable
 
+import numpy as np
 import torch
 
 from ieagan_torch import losses
 from ieagan_torch.core.config import DEFAULT_CONFIG
-from ieagan_torch.models.convert import (discriminator_state_from_flax,
-                                         generator_state_from_flax)
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import diff_augment, sample_diff_aug_draws
-from ieagan_torch.train.optim import make_optimizers
+from ieagan_torch.train.optim import lr_schedules, make_optimizers
 from ieagan_torch.train.ortho import apply_ortho_reg
-from ieagan_torch.utils.checkpoint import load_train_weights
+from ieagan_torch.utils.checkpoint import load_checkpoint
 
 # G's shared class embedding takes no ortho-reg (reference: train_fns.py:187-188)
 G_ORTHO_BLACKLIST = ("shared.",)
@@ -56,51 +65,51 @@ G_ORTHO_BLACKLIST = ("shared.",)
 @dataclasses.dataclass
 class TrainState:
     """Everything a step reads and updates. ``G_ema`` stays in eval mode and
-    takes no gradient; ``itr`` counts finished steps."""
+    takes no gradient; ``itr`` counts finished steps; ``compute_dtype`` is
+    the policy's compute type the step runs in."""
     G: Generator
     D: Discriminator
     G_ema: Generator
     opt_G: torch.optim.Optimizer
     opt_D: torch.optim.Optimizer
     itr: int = 0
+    compute_dtype: torch.dtype = torch.float32
 
 
-def _assemble(G, D, config, itr: int = 0, G_ema=None) -> TrainState:
-    if G_ema is None:
-        G_ema = copy.deepcopy(G)  # EMA starts as a copy (reference: utils/__init__.py:817-821)
+def _assemble(G, D, config, compute_dtype: torch.dtype) -> TrainState:
+    G_ema = copy.deepcopy(G)  # EMA starts as a copy (reference: utils/__init__.py:817-821)
     G_ema.eval().requires_grad_(False)
     G.train()
     D.train()
     opt_G, opt_D = make_optimizers(G, D, config)
-    return TrainState(G=G, D=D, G_ema=G_ema, opt_G=opt_G, opt_D=opt_D, itr=itr)
+    return TrainState(G=G, D=D, G_ema=G_ema, opt_G=opt_G, opt_D=opt_D,
+                      compute_dtype=compute_dtype)
 
 
 def init_train_state(G: Generator, D: Discriminator, config: dict,
-                     generator: torch.Generator | None = None) -> TrainState:
+                     generator: torch.Generator | None = None,
+                     compute_dtype: torch.dtype = torch.float32) -> TrainState:
     """Random init of ``G`` and ``D`` from ``generator`` (on their device),
-    ``G_ema`` a copy of ``G``, fresh Adam moments, ``itr`` 0."""
+    ``G_ema`` a copy of ``G``, fresh Adam moments, ``itr`` 0; the steps
+    compute in ``compute_dtype``."""
     G.reset_parameters(generator)
     D.reset_parameters(generator)
-    return _assemble(G, D, config)
+    return _assemble(G, D, dict(DEFAULT_CONFIG, **config), compute_dtype)
 
 
 def restore_train_state(path: str, tag: str, config: dict | None = None,
-                        device="cuda") -> TrainState:
+                        device="cuda", compute_dtype: torch.dtype = torch.float32) -> TrainState:
     """A ``TrainState`` on ``device`` from the G, D and G_ema weights and the
-    ``itr`` of checkpoint ``tag`` of the JAX package under ``path``, with
-    fresh Adam moments. ``config`` overrides ``DEFAULT_CONFIG``. Every key of
-    every checkpoint must fit the port's modules."""
+    ``itr`` of checkpoint ``tag`` under ``path`` (either package's), with
+    fresh Adam moments; the steps compute in ``compute_dtype``. ``config``
+    overrides ``DEFAULT_CONFIG``. Every key of every checkpoint must fit the
+    port's modules. ``utils/checkpoint.py::load_checkpoint`` restores a whole
+    run, optimizer files included, into a state."""
     config = dict(DEFAULT_CONFIG, **(config or {}))
-    weights = load_train_weights(path, tag)
     with torch.device(device):
-        G, D, G_ema = (Generator.from_config(config), Discriminator.from_config(config),
-                       Generator.from_config(config))
-    for module, tree, convert in ((G, weights["G"], generator_state_from_flax),
-                                  (D, weights["D"], discriminator_state_from_flax),
-                                  (G_ema, weights["G_ema"], generator_state_from_flax)):
-        state = convert(tree, module.state_dict())
-        module.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
-    return _assemble(G, D, config, itr=weights["itr"], G_ema=G_ema)
+        G, D = Generator.from_config(config), Discriminator.from_config(config)
+    state = _assemble(G, D, config, compute_dtype)
+    return load_checkpoint(path, state, tag, load_optim=False)[0]
 
 
 def _unported(config: dict) -> list[str]:
@@ -114,18 +123,22 @@ def _unported(config: dict) -> list[str]:
 
 
 def _on(device, item, dtype=None):
-    """A scheduled draw (array, tensor or dict of them) as tensors on device."""
+    """A scheduled draw (array, tensor or dict of them) as tensors on device;
+    numpy bfloat16 arrays (JAX's bfloat16 draws) arrive unchanged."""
     if isinstance(item, dict):
         return {k: _on(device, v) for k, v in item.items()}
     if isinstance(item, torch.Tensor):
         return item.to(device=device, dtype=dtype)
+    if isinstance(item, np.ndarray) and item.dtype.name == "bfloat16":
+        return torch.from_numpy(item.astype(np.float32)).to(
+            device=device, dtype=dtype or torch.bfloat16)
     return torch.tensor(item, dtype=dtype, device=device)
 
 
-def make_train_step(G: Generator, D: Discriminator, config: dict, *,
-                    draw_schedule: Iterable | None = None, capture_grads: bool = False):
+def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoch: int = 0,
+                    *, draw_schedule: Iterable | None = None, capture_grads: bool = False):
     """The step ``train_step(state, x, y, generator) -> metrics`` for a state
-    that holds ``G`` and ``D``.
+    that holds ``G`` and ``D``, in the state's compute type.
 
     x: (B, H, W, 1) real images in [-1, 1]; y: (B,) int labels; B a multiple
     of the event size. ``metrics`` maps D_loss_real, D_loss_fake,
@@ -133,6 +146,8 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
     turns on). ``draw_schedule`` replaces the random draws, in call order
     (see the module docstring); ``capture_grads`` adds the gradients after
     ortho-reg, by parameter name, under ``_grads_D`` and ``_grads_G``.
+    ``steps_per_epoch`` sets the learning-rate schedule's epochs (constant
+    while 0, as the JAX package's step).
     """
     config = dict(DEFAULT_CONFIG, **config)
     bad = _unported(config)
@@ -155,9 +170,12 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
     g_ortho, d_ortho = float(config["G_ortho"]), float(config["D_ortho"])
     ema_on, ema_decay = bool(config["ema"]), float(config["ema_decay"])
     ema_start = int(config["ema_start"])
+    g_lr, d_lr = lr_schedules(config, steps_per_epoch)
     schedule = iter(draw_schedule) if draw_schedule is not None else None
 
     def draw(kind, generator, x):
+        """A draw for the batch ``x``: the images' own dtype sets the
+        granularity of their DiffAugment draws."""
         b, h, w, _ = x.shape
         if schedule is not None:
             return _on(x.device, next(schedule), torch.float32 if kind != "aug" else None)
@@ -165,10 +183,11 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
             return torch.randn((b, dim_z), generator=generator, device=x.device) * z_std
         if kind == "rdof":
             return torch.randn((b, rdof_dim), generator=generator, device=x.device)
-        return sample_diff_aug_draws(generator, b, h, w, policy, device=x.device)
+        return sample_diff_aug_draws(generator, b, h, w, policy, device=x.device, dtype=x.dtype)
 
-    def draw_latents(generator, x):
-        z = draw("z", generator, x)
+    def draw_latents(generator, x, compute_dtype):
+        """z drawn in f32 and cast to the compute type; rdof in f32 (G casts)."""
+        z = draw("z", generator, x).to(compute_dtype)
         return z, (draw("rdof", generator, x) if use_rdof else None)
 
     def contra(embed, proxy, mask, y):
@@ -189,6 +208,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
     def train_step(state: TrainState, x, y, generator: torch.Generator | None = None) -> dict:
         if state.G is not G or state.D is not D:
             raise ValueError("this train step was made for other G and D modules")
+        compute_dtype = state.compute_dtype
         metrics = {}
         mask = losses.make_mask(y, n_classes)
         G.train()
@@ -201,16 +221,16 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
         for _ in range(num_D_steps):
             state.opt_D.zero_grad(set_to_none=True)
             for _ in range(num_D_acc):
-                z, rdof = draw_latents(generator, x)
+                z, rdof = draw_latents(generator, x, compute_dtype)
                 with torch.no_grad():
                     fake = G(z, y, rdof)
                 fake_in, x_in = fake, x
                 if do_diff_aug:
-                    fake_in = diff_augment(fake, draw("aug", generator, x), policy)
+                    fake_in = diff_augment(fake, draw("aug", generator, fake), policy)
                     if diff_aug_real:
                         x_in = diff_augment(x, draw("aug", generator, x), policy)
                 _, _, score_f = D(fake_in, y)
-                proxy_r, embed_r, score_r = D(x_in, y)
+                proxy_r, embed_r, score_r = D(x_in.to(compute_dtype), y)
                 loss_real, loss_fake = losses.loss_hinge_dis(score_f, score_r)
                 d_loss = loss_real + loss_fake + contra_lambda * contra(embed_r, proxy_r, mask, y)
                 mets = {"D_loss_real": loss_real, "D_loss_fake": loss_fake}
@@ -223,7 +243,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
             finish_grads(D, d_ortho)
             if capture_grads:
                 metrics["_grads_D"] = capture(D)
-            state.opt_D.step()
+            state.opt_D.step(d_lr)
             metrics.update(mets)
 
         # ---------------- G phase ----------------
@@ -231,10 +251,10 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
         G.requires_grad_(True)
         state.opt_G.zero_grad(set_to_none=True)
         for _ in range(num_G_acc):
-            z, rdof = draw_latents(generator, x)
+            z, rdof = draw_latents(generator, x, compute_dtype)
             fake = G(z, y, rdof)
             if do_diff_aug:
-                fake = diff_augment(fake, draw("aug", generator, x), policy)
+                fake = diff_augment(fake, draw("aug", generator, fake), policy)
             proxy_f, embed_f, score_f = D(fake, y)
             g_loss = losses.loss_hinge_gen(score_f) + contra_lambda * contra(
                 embed_f, proxy_f, mask, y)
@@ -253,7 +273,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, *,
         finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
         if capture_grads:
             metrics["_grads_G"] = capture(G)
-        state.opt_G.step()
+        state.opt_G.step(g_lr)
         metrics.update(mets)
 
         # ---------------- EMA ----------------

@@ -1,1 +1,2 @@
-"""Checkpoint reading for the port."""
+"""Checkpoints (the flax msgpack reader and writer, save/load/resume), logs,
+run dirs, log reading, plots and sampling."""

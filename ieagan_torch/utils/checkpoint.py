@@ -1,29 +1,114 @@
-"""Reading the weights of a training checkpoint of the JAX package (the G, D
-and G_ema part of ``ieagan_tpu/utils/checkpoint.py::load_checkpoint``).
+"""Checkpoints in the JAX package's file-per-component layout (twin of
+``ieagan_tpu/utils/checkpoint.py``; reference: utils/__init__.py:592-726).
 
 A run's weights dir holds, per tag (``copy<N>``, ``best<N>``), one
-flax-msgpack file per component (``G_<tag>``, ``D_<tag>``, ``G_ema_<tag>``,
-``G_optim_<tag>``, ``D_optim_<tag>``) and ``state_dict_<tag>.json`` with the
-iteration. This reads the three weight components with the port's own msgpack
-reader and no optimizer file: resuming the Adam moments is not ported yet.
+flax-msgpack file per component (``G_<tag>``, ``D_<tag>``, ``G_optim_<tag>``,
+``D_optim_<tag>``, ``G_ema_<tag>``) and ``state_dict_<tag>.json`` with the
+run's bookkeeping and ``itr``. Both packages read and write the same files:
+the port converts its modules and optimizers with ``models/convert.py`` and
+writes with its own msgpack writer, each file atomically (temporary file,
+then rename). The JAX package's device-to-host packing (``_to_host``,
+``utils/transfer.py``) exists for a network-attached TPU and has no twin.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pathlib
 
-from ieagan_torch.utils.flax_msgpack import read_checkpoint
+import torch
 
-WEIGHT_COMPONENTS = ("G", "D", "G_ema")
+from ieagan_torch.models.convert import (discriminator_state_from_flax,
+                                         discriminator_state_to_flax,
+                                         generator_state_from_flax,
+                                         generator_state_to_flax,
+                                         optimizer_state_from_flax,
+                                         optimizer_state_to_flax)
+from ieagan_torch.utils.flax_msgpack import (latest_checkpoint, msgpack_serialize,
+                                             read_checkpoint)
+
+__all__ = ["latest_checkpoint", "load_checkpoint", "save_checkpoint"]
 
 
-def load_train_weights(path: str, tag: str) -> dict:
-    """``{"G", "D", "G_ema"}`` flax variable trees (nested dicts of numpy
-    arrays) and ``"itr"`` (int) of checkpoint ``tag`` under ``path``."""
-    out = {}
-    for base in WEIGHT_COMPONENTS:
-        out[base] = read_checkpoint(os.path.join(path, f"{base}_{tag}.msgpack"))
-    with open(os.path.join(path, f"state_dict_{tag}.json"), encoding="utf-8") as fp:
-        out["itr"] = int(json.load(fp).get("itr", 0))
-    return out
+def _join(name_suffix: str | None, base: str) -> str:
+    return f"{base}_{name_suffix}" if name_suffix else base
+
+
+def _atomic_write(path: pathlib.Path, data: bytes):
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as fp:
+        fp.write(data)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(weights_dir, state, state_dict: dict, name_suffix: str | None = None):
+    """Save every component of the ``TrainState`` ``state`` and
+    ``state_dict`` (with ``itr`` set to the state's) under ``weights_dir``."""
+    weights_dir = pathlib.Path(weights_dir)
+    components = {
+        "G": generator_state_to_flax(state.G),
+        "D": discriminator_state_to_flax(state.D),
+        "G_optim": optimizer_state_to_flax(state.opt_G, state.G),
+        "D_optim": optimizer_state_to_flax(state.opt_D, state.D),
+        "G_ema": generator_state_to_flax(state.G_ema),
+    }
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    for base, tree in components.items():
+        _atomic_write(weights_dir / f"{_join(name_suffix, base)}.msgpack",
+                      msgpack_serialize(tree))
+    sd = dict(state_dict)
+    sd["itr"] = int(state.itr)
+    _atomic_write(weights_dir / f"{_join(name_suffix, 'state_dict')}.json",
+                  json.dumps(sd).encode())
+
+
+def _graft(template, src):
+    """Every leaf of ``src`` that the template has, the template's elsewhere
+    (``ieagan_tpu/utils/checkpoint.py:293-298``)."""
+    if isinstance(template, dict):
+        return {k: (_graft(v, src.get(k)) if isinstance(src, dict) else v)
+                for k, v in template.items()}
+    return template if src is None else src
+
+
+def _load_module(module, tree, convert):
+    state = convert(tree, module.state_dict())
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+
+
+def _load_optimizer(path: pathlib.Path, opt, model, itr: int):
+    tree = read_checkpoint(path)
+    try:
+        optimizer_state_from_flax(opt, model, tree)
+    except KeyError:
+        # Optimizer files saved before round 5 of the JAX package serialize
+        # the constant-lr chain (an empty state where the schedule's count
+        # now is). Take every leaf the file has, keep the optimizer's own for
+        # the rest, and seed the schedule's count with the resumed itr (the
+        # reference scheduler's position, train.py:244-247).
+        print(f"checkpoint '{path.name}': legacy optimizer structure; "
+              "grafting into the scheduled-optimizer tree")
+        optimizer_state_from_flax(opt, model, _graft(optimizer_state_to_flax(opt, model), tree))
+        opt.sched_count = itr
+
+
+def load_checkpoint(weights_dir, state, name_suffix: str | None = None,
+                    load_optim: bool = True):
+    """Restore the ``TrainState`` ``state`` in place from checkpoint
+    ``name_suffix`` under ``weights_dir``: G, D and G_ema, with
+    ``load_optim`` the Adam moments and counts, and ``itr``. Returns
+    ``(state, state_dict)``."""
+    weights_dir = pathlib.Path(weights_dir)
+    with open(weights_dir / f"{_join(name_suffix, 'state_dict')}.json") as fp:
+        sd = json.load(fp)
+    path = lambda base: weights_dir / f"{_join(name_suffix, base)}.msgpack"
+    _load_module(state.G, read_checkpoint(path("G")), generator_state_from_flax)
+    _load_module(state.D, read_checkpoint(path("D")), discriminator_state_from_flax)
+    _load_module(state.G_ema, read_checkpoint(path("G_ema")), generator_state_from_flax)
+    itr = int(sd.get("itr", 0))
+    if load_optim:
+        _load_optimizer(path("G_optim"), state.opt_G, state.G, itr)
+        _load_optimizer(path("D_optim"), state.opt_D, state.D, itr)
+    state.itr = itr
+    return state, sd

@@ -1,4 +1,4 @@
-"""Reader of flax msgpack checkpoints, in pure Python and numpy.
+"""Reader and writer of flax msgpack checkpoints, in pure Python and numpy.
 
 The JAX package saves every checkpoint component with
 ``flax.serialization.to_bytes``: msgpack maps of strings whose array leaves
@@ -9,6 +9,10 @@ same way). Arrays of 2**30 bytes or more are split into
 that format without flax, jax or the msgpack package, so the port can load
 the repo's checkpoints on a machine that has none of them. Arrays are
 returned as read-only numpy views of the file's bytes, as flax returns them.
+``msgpack_serialize`` writes the format back as ``flax.serialization.to_bytes``
+does (dict keys sorted, as a jax tree map leaves them; msgpack's smallest
+encodings; float64 for Python floats), so the JAX package restores what the
+port saves.
 
 It also holds the port's copies of the checkpoint-resolution helpers of
 ``ieagan_tpu/deploy/inference.py`` and ``ieagan_tpu/utils/checkpoint.py``.
@@ -149,6 +153,106 @@ def msgpack_restore(data: bytes):
     """The twin of ``flax.serialization.msgpack_restore``: a nested dict of
     numpy arrays (and Python scalars) from a flax msgpack byte string."""
     return _unchunk_in_place(unpackb(data, _flax_ext_hook))
+
+
+def _pack(obj, out: bytearray):
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(obj, out)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_header(len(data), out, 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_header(len(data), out, None, 0, (0xC4, 0xC5, 0xC6))
+        out += data
+    elif isinstance(obj, (list, tuple)):
+        _pack_header(len(obj), out, 0x90, 16, (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack(item, out)
+    elif isinstance(obj, dict):
+        _pack_header(len(obj), out, 0x80, 16, (None, 0xDE, 0xDF))
+        for key in sorted(obj, key=str):
+            _pack(str(key), out)
+            _pack(obj[key], out)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(_EXT_NDARRAY, _ndarray_to_bytes(obj), out)
+    elif isinstance(obj, np.generic):
+        _pack_ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)), out)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to a flax msgpack file")
+
+
+def _pack_header(n: int, out: bytearray, fix: int | None, fix_limit: int, codes):
+    """The length header: the fix form below ``fix_limit``, else the 8-, 16-
+    or 32-bit form (``None`` where msgpack has none)."""
+    if fix is not None and n < fix_limit:
+        out.append(fix | n)
+    elif codes[0] is not None and n < 1 << 8:
+        out += bytes((codes[0], n))
+    elif n < 1 << 16:
+        out += bytes((codes[1],)) + struct.pack(">H", n)
+    else:
+        out += bytes((codes[2],)) + struct.pack(">I", n)
+
+
+def _pack_int(n: int, out: bytearray):
+    if 0 <= n < 0x80:
+        out.append(n)
+    elif -32 <= n < 0:
+        out.append(n & 0xFF)
+    elif n >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 1 << 64)):
+            if n <= top:
+                out += bytes((code,)) + struct.pack(fmt, n)
+                return
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                               (0xD2, ">i", -0x80000000), (0xD3, ">q", -(1 << 63))):
+            if n >= low:
+                out += bytes((code,)) + struct.pack(fmt, n)
+                return
+
+
+def _pack_ext(code: int, data: bytes, out: bytearray):
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _pack_header(len(data), out, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.nbytes >= MAX_CHUNK_BYTES:
+        raise ValueError(f"an array of {arr.nbytes} bytes needs flax's chunked "
+                         "record, which this writer does not write")
+    return _packb((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+# flax splits arrays of this many bytes or more into chunks
+MAX_CHUNK_BYTES = 1 << 30
+
+
+def _packb(obj) -> bytes:
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The twin of ``flax.serialization.msgpack_serialize``: ``tree`` (nested
+    dicts of numpy arrays; None, bool, int, float, str, bytes, lists and
+    numpy scalars also encode) as flax msgpack bytes."""
+    return _packb(tree)
 
 
 def read_checkpoint(path) -> dict:

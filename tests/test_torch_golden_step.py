@@ -279,10 +279,13 @@ def test_compare_flags_each_kind_of_difference():
 
 @pytest.mark.slow
 def test_golden_step_file_matches_jax():
-    """Regenerate the golden step from the JAX package and check the file."""
+    """Regenerate the golden step from the JAX package and check the file.
+    The file holds its floats to 9 significant digits, so the chosen entries
+    (with their leaf's RMS) and the draws are compared after that rounding."""
     g = golden_step.load()
     fresh = build_golden(g["seed"])
-    assert fresh["entries"] == g["entries"] and fresh["draws"] == g["draws"]
+    assert _nine_digits(fresh["entries"]) == g["entries"]
+    assert _nine_digits(fresh["draws"]) == g["draws"]
     summary = {"metrics": fresh["metrics"], "module_norms": fresh["module_norms"],
                "entries": fresh["entries_values"]}
     result = golden_step.compare(g, summary)

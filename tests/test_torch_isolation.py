@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``ieagan_torch`` and not
-``chip_smoke.py`` imports jax, flax, msgpack or the JAX package, whose
-absence on the GPU machine would break the port there."""
+"""The port stands alone: no module of ``ieagan_torch``, neither
+``chip_smoke.py`` nor the training CLI ``train_torch.py`` imports jax, flax,
+msgpack or the JAX package, whose absence on the GPU machine would break the
+port there."""
 
 import ast
 import pathlib
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "ieagan_tpu")
-FILES = sorted((ROOT / "ieagan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+ENTRY_POINTS = [ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
+FILES = sorted((ROOT / "ieagan_torch").rglob("*.py")) + ENTRY_POINTS
 
 
 def _imported_modules(path):
@@ -37,7 +39,7 @@ def test_importing_the_port_loads_no_forbidden_module():
     """Importing every module of the port, in a fresh interpreter, leaves
     jax, flax and msgpack unloaded."""
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
-               for p in FILES if p.name != "chip_smoke.py"]
+               for p in FILES if p not in ENTRY_POINTS]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"print(sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r}))")

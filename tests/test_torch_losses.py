@@ -29,22 +29,23 @@ from ieagan_torch.train.ortho import apply_ortho_reg
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def jax_draws(key, x_shape, policy):
+def jax_draws(key, x_shape, policy, dtype=jnp.float32):
     """The draws ``ieagan_tpu.ops.diff_aug.diff_augment(key, x, policy)``
-    takes, replayed from its key chain, in the port's format."""
+    takes for an ``x`` of ``dtype``, replayed from its key chain, in the
+    port's format (the colour factors in ``dtype``, as JAX draws them)."""
     b, h, w, _ = x_shape
     draws = {}
     for p in policy.split(","):
         for name in {"color": ("brightness", "saturation", "contrast"),
                      "translation": ("translation",), "cutout": ("cutout",)}[p]:
             key, sub = jax.random.split(key)
-            u = lambda: np.asarray(jax.random.uniform(sub, (b, 1, 1, 1), jnp.float32)).reshape(b)
+            u = lambda: jax.random.uniform(sub, (b, 1, 1, 1), dtype).reshape(b)
             if name == "brightness":
-                draws[name] = u() - np.float32(0.5)
+                draws[name] = np.asarray(u() - 0.5)
             elif name == "saturation":
-                draws[name] = u() * np.float32(2.0)
+                draws[name] = np.asarray(u() * 2.0)
             elif name == "contrast":
-                draws[name] = u() + np.float32(0.5)
+                draws[name] = np.asarray(u() + 0.5)
             elif name == "translation":
                 sh, sw = int(h * 0.125 + 0.5), int(w * 0.125 + 0.5)
                 kh, kw = jax.random.split(sub)
@@ -205,7 +206,8 @@ def test_adam_matches_optax():
     parameters and gradients (some near eps, one exactly zero). torch and
     optax compute sqrt(v / bc2) in different orders, which can move the
     rounded parameter by one f32 ulp: 2.4e-7 relative (two ulps), 1e-9
-    absolute."""
+    absolute. (The schedules, clipping, AMSGrad and AdaBelief are held to
+    optax in ``tests/test_torch_optim.py``.)"""
     rng = np.random.default_rng(9)
     w0 = rng.standard_normal((3, 50)).astype(np.float32)
     gs = [rng.standard_normal((3, 50)).astype(np.float32) * np.float32(s)
@@ -215,14 +217,10 @@ def test_adam_matches_optax():
     w, state = jnp.asarray(w0), None
     state = tx.init(w)
     p = torch.nn.Parameter(torch.tensor(w0))
-    opt = make_optimizer([p], 5e-5, 0.0, 0.999, 1e-6)
+    opt = make_optimizer([p], 0.0, 0.999, 1e-6)
     for g in gs:
         updates, state = tx.update(jnp.asarray(g), state, w)
         w = optax.apply_updates(w, updates)
         p.grad = torch.tensor(g)
-        opt.step()
+        opt.step(5e-5)
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(w), rtol=2.4e-7, atol=1e-9)
-    with pytest.raises(NotImplementedError):
-        make_optimizer([p], 1e-4, 0.0, 0.999, 1e-6, sched_version="CosAnnealLR")
-    with pytest.raises(NotImplementedError):
-        make_optimizer([p], 1e-4, 0.0, 0.999, 1e-6, clip_norm=1.0)
