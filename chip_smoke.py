@@ -10,7 +10,8 @@ Phases, each timed on a line of its own:
 1. device: the card's name and power limit; TF32 off, as the JAX deploy path
    is fp32;
 2. build: every kernel under ``ieagan_torch/kernels/csrc`` with nvcc, in
-   parallel, into the ignored ``ieagan_torch/kernels/_build``;
+   parallel, and the producer's sparse-digit library with g++, into the
+   ignored ``ieagan_torch/kernels/_build``;
 3. kernel vs plain: the fused attention forward (B1) against its plain
    PyTorch version at the three attention sites of the model, f32 and bf16,
    with times of the kernel, the plain version, ``scaled_dot_product_attention``
@@ -52,6 +53,22 @@ Phases, each timed on a line of its own:
    gradient norms, per-leaf cosine) and outside them against the f32 step
    on other draws; two yardsticks printed beside them (the f32 step with
    TF32, and bf16 against f32 with D's learning rate 0).
+9. evaluation and production, with ``best0``: (a) the Inception graph at
+   full width with the numpy-seeded fallback weights against the JAX
+   package's features in ``ieagan_torch/eval/golden_inception.json`` (a
+   control on the other half of the images must break the bounds), ms per
+   image with TF32 off and on; (b) the device resize of the golden event
+   against PIL; (c) ``make_generator_fn`` (trunc 1, permuted labels) for
+   2,000 images: features, device moments against host f64 ``np.cov``, FID
+   and KID against stats minted by ``make_custom_stats`` from phase 7's PNG
+   tree into a temporary ``IEAGAN_STATS_DIR``, the self-check, B1 launches
+   per generator call, seconds per FID; (d) ``train/driver.py::run``
+   reaching ``test_every``, once with the FID subprocess and once in
+   process; (e) ``EventProducer`` (sparse digits through the C++ library
+   built in phase 2) against its blocks' pixels and the golden counts,
+   events per second; (f) ``generate_stats`` against the host path. The
+   phase reads nothing under ``stats/``: it mints its own reference
+   statistics and runs Inception with the seeded fallback weights.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -617,27 +634,34 @@ def trace_summary(path, top=10):
     return ranked, (end - start) / 1e3, 1.0 - busy / (end - start)
 
 
+def write_png_tree(np, tree, cfg, events=2):
+    """A PNG event tree in the reference layout: one dir per sensor, each
+    event a 250x768 uint8 image with 1% of its pixels at 7-254 ADU (sparse
+    as PXD data), from ``np.random.default_rng(3)``. Returns ``tree``."""
+    from PIL import Image
+    rng = np.random.default_rng(3)
+    shape = (cfg["resolution"] - 6, cfg["resolution"] * cfg["H_base"])  # 250 x 768
+    for s in range(cfg["n_classes"]):
+        os.makedirs(os.path.join(tree, f"sensor_{s:02d}"))
+        for e in range(events):
+            img = np.where(rng.random(shape) < 0.01, rng.integers(7, 255, shape), 0)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(tree, f"sensor_{s:02d}", f"event_{e}.png"))
+    return tree
+
+
 def data_path(torch, np, driver, root, cfg):
     """Phase 7, dataset path: a PNG event tree in the reference layout
     (40 sensor dirs of 250x768 uint8 images, sparse as PXD data), loaded by
     the port's loader onto the card (pinned batches, copied on the loader's
     stream) and compared with its host batches; then two driver steps on it
     with the uint8 upload and the on-device transform."""
-    from PIL import Image
     from ieagan_torch.data import load_dataset
     from ieagan_torch.data.dataset import event_transform_stack
     from ieagan_torch.ops.image_norm import device_event_transform
     from ieagan_torch.utils.run_dirs import initialize_directories
 
-    tree = os.path.join(root, "pxd")
-    rng = np.random.default_rng(3)
-    shape = (cfg["resolution"] - 6, cfg["resolution"] * cfg["H_base"])  # 250 x 768
-    for s in range(cfg["n_classes"]):
-        os.makedirs(os.path.join(tree, f"sensor_{s:02d}"))
-        for e in range(2):
-            img = np.where(rng.random(shape) < 0.01, rng.integers(7, 255, shape), 0)
-            Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(tree, f"sensor_{s:02d}", f"event_{e}.png"))
+    tree = write_png_tree(np, os.path.join(root, "pxd"), cfg)
     for raw in (False, True):
         loader = load_dataset(tree, num_workers=4, shuffle=True, seed=1, events_per_batch=1,
                               raw_uint8=raw)
@@ -988,6 +1012,313 @@ def bf16_vs_f32_phase(torch, np):
         raise SystemExit("phase 8: " + "; ".join(faults))
 
 
+def inception_parity(torch, np):
+    """Phase 9a: the port's Inception with the fallback weights against the
+    JAX package's features in ``golden_inception.json``; the control (the
+    other half of the images) must break the bounds. Times per image at one
+    event's batch, TF32 off and on."""
+    from ieagan_torch.eval import golden
+    from ieagan_torch.eval.fid import FeatureExtractor, f32_products
+    from ieagan_torch.eval.inception import build_inception, init_feature_weights
+
+    g = golden.load()
+    extractor = FeatureExtractor(device="cuda", seed=g["seed"])
+    feats = extractor(torch.tensor(golden.inputs(g["seed"]), device="cuda"))
+    half = golden.N_IMAGES // 2
+    result = golden.compare(g, feats)
+    control = golden.compare(g, feats[half:], images=np.arange(half))
+    print(f"inception vs golden_inception.json: {json.dumps(result)}; control (other half of "
+          f"the images): {json.dumps(control)} (bounds: norm {golden.NORM_RTOL}, entries "
+          f"{golden.ENTRY_RTOL} of the image's norm)", flush=True)
+    if not (result["norm_ok"] and result["entry_ok"]):
+        raise SystemExit("the card's Inception features disagree with golden_inception.json")
+    if control["norm_ok"] or control["entry_ok"]:
+        raise SystemExit("the Inception control kept a bound: the bounds cannot tell images apart")
+    model = build_inception(init_feature_weights(0), "cuda")
+    x = torch.rand((40, 3, 299, 299), device="cuda")
+    macs = []  # per image: each convolution's outputs times its kernel's inputs
+    hooks = [m.register_forward_hook(lambda m, i, o: macs.append(
+        o[0].numel() * m.weight[0].numel())) for m in model.modules()
+        if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(x[:1])
+    for h in hooks:
+        h.remove()
+    gflop = 2 * sum(macs) / 1e9
+    per_image = {}
+    for label, tf32 in (("f32", False), ("tf32", True)):
+        with f32_products(), torch.inference_mode():
+            torch.backends.cudnn.allow_tf32 = tf32
+            per_image[label] = time_ms(torch, lambda: model(x), reps=5, inner=1) / x.shape[0]
+    print(f"inception forward at 40 images ({gflop:.3f} GFLOP of convolutions per image): "
+          f"{per_image['f32']:.3f} ms per image in f32 with TF32 off "
+          f"({gflop / per_image['f32']:.1f} TFLOP/s), {per_image['tf32']:.3f} with TF32 "
+          f"({gflop / per_image['tf32']:.1f} TFLOP/s, printed only)", flush=True)
+    return per_image
+
+
+def resize_parity(torch, np, model):
+    """Phase 9b: the device resize of the golden event's 40 images against
+    PIL's on the host, within ``tests/test_eval.py``'s bounds."""
+    from ieagan_torch.deploy import golden
+    from ieagan_torch.eval.fid import fid_postprocess
+    from ieagan_torch.eval.resize import pil_resize_batch, resize_single_channel
+
+    z, rdof = (torch.tensor(a, device="cuda") for a in golden.inputs(golden.load()["seed"]))
+    with torch.inference_mode():
+        imgs01 = fid_postprocess(model.G(z, model.labels(1), rdof).float())
+        dev = resize_single_channel(imgs01).cpu().numpy()
+    err = np.abs(dev - pil_resize_batch(imgs01.cpu().numpy()))
+    print(f"resize of the best0 golden event {tuple(imgs01.shape)} -> {dev.shape}: vs PIL max "
+          f"{err.max():.3e}, mean {err.mean():.3e} (bounds 5e-3, 2e-4)", flush=True)
+    if not (err.max() < 5e-3 and err.mean() < 2e-4):
+        raise SystemExit("the device resize disagrees with PIL's")
+
+
+def fid_machinery(torch, np, model, tree, fwd):
+    """Phase 9c: 50 best0 events (2,000 images) through ``make_generator_fn``
+    (trunc 1, permuted labels): features, device moments against host f64
+    ``np.cov``, FID and KID against stats minted from the PNG tree, and the
+    self-check (stats minted from a feature set score it ~0, the set shifted
+    scores higher). Returns B1's launches per generator call and times."""
+    from ieagan_torch.eval import fid
+
+    cfg = dict(model.config, fid_dataset_name="pngtree")
+    extractor = fid.FeatureExtractor(device="cuda")
+    t = time.perf_counter()
+    fid.make_custom_stats("pngtree", tree, extractor=extractor)
+    fid.make_custom_kid_stats("pngtree", tree, extractor=extractor)
+    mint_s = time.perf_counter() - t
+    n_gen, chunks = 2000, 10
+    gen = fid.make_generator_fn(model.G, cfg, trunc=1.0, chunks=chunks)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(8)
+    fwd.launches = 0
+    calls = 0
+
+    def counted(generator):
+        nonlocal calls
+        calls += 1
+        return gen(generator)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fid_best0, feats = fid.compute_fid(counted, dataset_name="pngtree", num_gen=n_gen,
+                                       generator=seeded(), extractor=extractor,
+                                       return_features=True)
+    fid_s = time.perf_counter() - t
+    b1_per_call = fwd.launches // calls
+    if fwd.launches != calls * chunks:
+        raise SystemExit(f"B1 launched {fwd.launches} times in {calls} FID generator calls of "
+                         f"{chunks} chunks")
+    if feats.shape != (n_gen, 2048) or not np.isfinite(feats).all():
+        raise SystemExit(f"FID features: shape {feats.shape}, finite {np.isfinite(feats).all()}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mu, sigma, n = fid.get_model_features(gen, extractor, num_gen=n_gen, generator=seeded(),
+                                          return_moments=True)
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t
+    host = feats.astype(np.float64)
+    cov = np.cov(host, rowvar=False)
+    mu_err = float(np.abs(mu - host.mean(0)).max() / np.abs(host).max())
+    sigma_rel = float(np.linalg.norm(sigma - cov) / np.linalg.norm(cov))
+    print(f"device moments of {n} best0 images vs host f64 np.cov: mu {mu_err:.3e} of the "
+          f"largest feature, sigma {sigma_rel:.3e} relative (bounds 1e-5, 1e-4)", flush=True)
+    if not (n == n_gen and mu_err < 1e-5 and sigma_rel < 1e-4):
+        raise SystemExit("the device moments disagree with the host covariance")
+    ref_kid = np.load(fid._stats_path("pngtree").replace(".npz", "_kid.npz"))["feats"]
+    kid = fid.kernel_distance(feats, ref_kid, seed=0)
+    kid_floor = fid.kid_self_floor(ref_kid, seed=0)
+    t = time.perf_counter()
+    self_fid = fid.frechet_distance(host.mean(0), cov, host.mean(0), cov)
+    sqrtm_s = time.perf_counter() - t
+    shift = 0.05 * host.std(0)
+    shift_fid = fid.frechet_distance(host.mean(0) + shift, cov, host.mean(0), cov)
+    print(f"best0 vs the PNG tree's stats ({len(ref_kid)} images, fallback Inception): FID "
+          f"{fid_best0:.4f}, KID {kid:.4e} (real-vs-real floor {kid_floor:.4e}); self-check: "
+          f"FID of the set against itself {self_fid:.3e}, shifted by 0.05 std {shift_fid:.4e} "
+          f"(|shift|^2 = {float(shift @ shift):.4e})", flush=True)
+    if not (np.isfinite(fid_best0) and fid_best0 > 0 and np.isfinite(kid)):
+        raise SystemExit("FID/KID of best0 not finite and positive")
+    if not (abs(self_fid) < 1e-3 * np.trace(cov) and shift_fid > abs(self_fid)
+            and abs(shift_fid - float(shift @ shift)) < 0.05 * float(shift @ shift)):
+        raise SystemExit("the FID self-check failed")
+    extrapolated = 8 * (fid_s - sqrtm_s) + sqrtm_s
+    print(f"FID of {n_gen} images: {fid_s:.2f} s (generation, resize, Inception, host f64 "
+          f"sqrtm {sqrtm_s:.2f} s); features alone {features_s:.2f} s; 16,000 images (the "
+          f"default) extrapolated {extrapolated:.1f} s; stats minted from {len(ref_kid)} PNGs "
+          f"in {mint_s:.2f} s; B1 {b1_per_call} launches per generator call of {chunks} chunks, "
+          f"{fwd.launches} in {calls} calls", flush=True)
+    return {"b1_per_call": b1_per_call, "fid_s": fid_s, "sqrtm_s": sqrtm_s,
+            "fid16000_s": extrapolated}
+
+
+def driver_fid_phase(torch, np, root):
+    """Phase 9d: ``train/driver.py::run`` at the flagship width reaching
+    ``test_every`` once with the FID subprocess and once in process (400
+    images against the minted stats): FID finite and logged, best0 written,
+    ``best_FID`` in the state dict, the subprocess's JSON line read."""
+    import ieagan_torch.train.driver as driver
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.utils.run_dirs import initialize_directories
+
+    results = []
+    sub = driver._run_fid_subprocess
+
+    def recorded(*args, **kwargs):
+        res = sub(*args, **kwargs)
+        results.append(res)
+        return res
+
+    driver._run_fid_subprocess = recorded
+    try:
+        for subprocess_on in (True, False):
+            name = "fid_sub" if subprocess_on else "fid_inproc"
+            cfg = dict(DEFAULT_CONFIG, outputroot=root, run_name=name, debug=True,
+                       debug_batches=1, num_epochs=1, save_every=1, test_every=1,
+                       samples_per_class_sheet=0, fid_subprocess=subprocess_on,
+                       num_incep_images=400, fid_gen_chunks=5, fid_dataset_name="pngtree")
+            initialize_directories(cfg)
+            t = time.perf_counter()
+            state, sd = driver.run(cfg)
+            run_s = time.perf_counter() - t
+            logs = [json.loads(ln) for ln in open(os.path.join(
+                root, name, "logs", "metric_log.jsonl"))]
+            fids = [r["FID"] for r in logs if "FID" in r]
+            weights = os.path.join(root, name, "weights")
+            best = json.load(open(os.path.join(weights, "state_dict_best0.json")))
+            print(f"driver run ({'subprocess' if subprocess_on else 'in process'} FID): "
+                  f"{run_s:.1f} s for one step, one save and one test; FID {fids}, best_FID "
+                  f"{sd['best_FID']}, best0 {best['best_FID']}", flush=True)
+            if not (len(fids) == 1 and np.isfinite(fids[0]) and fids[0] >= 0
+                    and sd["best_FID"] == fids[0] == best["best_FID"]
+                    and os.path.exists(os.path.join(weights, "G_ema_best0.msgpack"))):
+                raise SystemExit(f"the driver's FID test ({name}) was not logged and tracked")
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        driver._run_fid_subprocess = sub
+    if len(results) != 1 or not isinstance(results[0], dict) or not (
+            {"fid", "nonzero_frac", "tag"} <= set(results[0])):
+        raise SystemExit(f"the FID subprocess's JSON line: {results}")
+    print(f"FID subprocess JSON line: {json.dumps(results[0])}", flush=True)
+
+
+def producer_phase(torch, np, model):
+    """Phase 9e: ``EventProducer`` from best0, 8 events at 4 per call: each
+    event's digits are its block's ADU > 0 pixels with their uint8-truncated
+    charges; the golden event's per-sensor digit counts within the golden
+    file's nonzero bound; events per second and ms of extraction per event."""
+    from ieagan_torch.deploy import golden
+    from ieagan_torch.deploy import producer as prod
+
+    producer = prod.EventProducer(model, num_events=8, events_per_call=4, chunks=1, seed=9)
+    blocks = []
+    generate = producer._generate
+
+    def recorded(generator):  # observation only: keep each block the thread generates
+        block = generate(generator)
+        blocks.append(block.cpu().numpy())
+        return block
+
+    producer._generate = recorded
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    events = list(producer.start())
+    wall = time.perf_counter() - t
+    producer.join(timeout=60)
+    es = model.event_size
+    flat = np.concatenate(blocks)
+    if len(events) != 8 or len(blocks) != 2:
+        raise SystemExit(f"producer: {len(events)} events from {len(blocks)} blocks")
+    for e, (coords, charges) in enumerate(events):
+        imgs = flat[e * es:(e + 1) * es]
+        want_coords, want_charges = prod.extract_sparse_digits_plain(imgs)
+        if not (len(coords) == int((imgs > 0).sum()) and np.array_equal(coords, want_coords)
+                and np.array_equal(charges, want_charges)):
+            raise SystemExit(f"producer event {e}: digits differ from its block's pixels")
+    g = golden.load()
+    z, rdof = (torch.tensor(a, device="cuda") for a in golden.inputs(g["seed"]))
+    event = model.events(z, rdof).cpu().numpy()
+    t = time.perf_counter()
+    coords, _ = prod.extract_sparse_digits(event)
+    extract_ms = (time.perf_counter() - t) * 1e3
+    counts = np.bincount(coords[:, 0], minlength=es)
+    worst = int(np.abs(counts - np.asarray(g["nonzero"])).max())
+    print(f"producer: 8 events in {wall:.2f} s ({8 / wall:.2f} events/s, 2 blocks of 4), every "
+          f"event's digits equal its block's; golden event's per-sensor digit counts within "
+          f"{worst} of golden_best0.json's nonzero counts (bound {golden.NONZERO_ATOL}); "
+          f"extraction {extract_ms:.2f} ms per event ({len(coords)} digits)", flush=True)
+    if worst > golden.NONZERO_ATOL:
+        raise SystemExit("the producer's digits of the golden event disagree with its counts")
+    return 8 / wall, extract_ms
+
+
+def physics_phase(torch, np, model):
+    """Phase 9f: ``generate_stats`` (device reductions) against
+    ``get_stats(generate_event_stream(...))`` on the same seed, 8 events."""
+    from ieagan_torch.eval import physics
+
+    cfg = model.config
+    t = time.perf_counter()
+    dev = physics.generate_stats(model.G, cfg, n_events=8, seed=4, events_per_call=4)
+    dev_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host = physics.get_stats(physics.generate_event_stream(model.G, cfg, seed=4,
+                                                           events_per_call=4), n_events=8)
+    host_s = time.perf_counter() - t
+    same = all(np.array_equal(dev[k], host[k]) for k in ("intensity_hist", "occupancy_hist",
+                                                         "per_sensor_occupancy"))
+    charge = np.nanmax(np.abs(dev["per_sensor_mean_charge"] - host["per_sensor_mean_charge"])
+                       / np.abs(host["per_sensor_mean_charge"]))
+    print(f"physics over 8 best0 events: device reductions {dev_s:.2f} s, host path "
+          f"{host_s:.2f} s; histograms and occupancies equal: {same}; mean charge within "
+          f"{charge:.3e} relative (bound 1e-5); mean occupancy "
+          f"{float(np.mean(dev['per_sensor_occupancy'])):.5f}", flush=True)
+    if not (same and charge <= 1e-5 and dev["n_events"] == host["n_events"] == 8):
+        raise SystemExit("generate_stats disagrees with the host path")
+
+
+def eval_phase(torch, np):
+    """Phase 9: FID/KID and physics evaluation, and the event producer."""
+    import tempfile
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.deploy import Model
+    from ieagan_torch.kernels.flash_attention import attention_fwd
+
+    out = {}
+    t0 = time.perf_counter()
+    out["inception_ms"] = inception_parity(torch, np)
+    phase("eval: inception", t0)
+    model = Model.restore(CHECKPOINT, tag="best0", device="cuda")
+    t0 = time.perf_counter()
+    resize_parity(torch, np, model)
+    phase("eval: resize", t0)
+    stats_env = os.environ.get("IEAGAN_STATS_DIR")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["IEAGAN_STATS_DIR"] = os.path.join(root, "stats")
+        try:
+            tree = write_png_tree(np, os.path.join(root, "pxd"), DEFAULT_CONFIG)
+            t0 = time.perf_counter()
+            out.update(fid_machinery(torch, np, model, tree, attention_fwd))
+            phase("eval: FID machinery", t0)
+            t0 = time.perf_counter()
+            driver_fid_phase(torch, np, root)
+            phase("eval: driver test_every", t0)
+        finally:
+            if stats_env is None:
+                os.environ.pop("IEAGAN_STATS_DIR", None)
+            else:
+                os.environ["IEAGAN_STATS_DIR"] = stats_env
+    t0 = time.perf_counter()
+    out["events_per_s"], out["extract_ms"] = producer_phase(torch, np, model)
+    phase("eval: producer", t0)
+    t0 = time.perf_counter()
+    physics_phase(torch, np, model)
+    phase("eval: physics", t0)
+    return out
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -1009,11 +1340,18 @@ def main():
     phase("device", t0)
 
     t0 = time.perf_counter()
-    for name, res in build.build().items():
-        print(f"built {name} in {res['seconds']:.2f} s -> {os.path.relpath(res['path'], ROOT)}",
-              flush=True)
-        for ln in ptxas_summary(res["log"]):
-            print(f"  {ln}", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+    from ieagan_torch.deploy import producer
+    with ThreadPoolExecutor(1) as pool:  # the host library builds beside nvcc
+        host_lib = pool.submit(producer.build_native)
+        for name, res in build.build().items():
+            print(f"built {name} in {res['seconds']:.2f} s -> "
+                  f"{os.path.relpath(res['path'], ROOT)}", flush=True)
+            for ln in ptxas_summary(res["log"]):
+                print(f"  {ln}", flush=True)
+        res = host_lib.result()
+    print(f"built sparse_digits (g++) in {res['seconds']:.2f} s -> "
+          f"{os.path.relpath(res['path'], ROOT)}", flush=True)
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -1049,6 +1387,10 @@ def main():
     bf16_vs_f32_phase(torch, np)
     phase("bf16 vs f32", t0)
 
+    t0 = time.perf_counter()
+    ev = eval_phase(torch, np)
+    phase("evaluation and producer", t0)
+
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
                            and r["dtype"] == "float32")
@@ -1065,7 +1407,7 @@ def main():
         "max_abs_err": b1["max_abs_err_o"], "ms": b1["ms"], "plain_ms": b1["plain_ms"],
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
         "site": "D_SA f32 " + "x".join(map(str, b1["shape"])),
-        "launches_driver": driver_launches["B1"],
+        "launches_driver": driver_launches["B1"], "launches_fid_call": ev["b1_per_call"],
         "bf16": {"max_abs_err": b1h["max_abs_err_o"], "ms": b1h["ms"],
                  "plain_ms": b1h["plain_ms"], "bound_ms": b1h["bound_ms"],
                  "bound_by": b1h["bound_by"], "library_ms": b1h["library_ms"]},
@@ -1086,7 +1428,9 @@ def main():
     }]
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
-          f"{driver_peak:.2f} GiB)", flush=True)
+          f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "
+          f"{ev['inception_ms']['f32']:.3f} ms per image; producer {ev['events_per_s']:.2f} "
+          f"events/s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 A second package beside the JAX one, which stays the reference: each module
 here is the twin of a module there and is tested against it. This package
-imports ``torch`` and ``numpy`` only: never ``jax``, ``flax``, ``msgpack`` or
-``ieagan_tpu``. The TPU's Pallas kernels become CUDA kernels written for
-``sm_90a`` under ``kernels/csrc``; each has a plain PyTorch version beside it.
+imports ``torch``, ``numpy``, ``scipy`` and ``PIL`` only: never ``jax``,
+``flax``, ``msgpack`` or ``ieagan_tpu``. The TPU's Pallas kernels become CUDA
+kernels written for ``sm_90a`` under ``kernels/csrc``; each has a plain
+PyTorch version beside it.
 
 Layer map:
   core/      config surface (own copy of the JAX package's), dtype policy
@@ -20,7 +21,10 @@ Layer map:
              golden step check
   utils/     flax msgpack reader/writer, checkpoints, logs, run dirs, plots,
              sampling
-  deploy/    generator-only inference (the basf2 deployment path)
+  eval/      clean-FID/KID (InceptionV3, the metric's resize, reference stats),
+             physics stats, the one-shot FID subprocess of the driver
+  deploy/    generator-only inference (the basf2 deployment path) and the
+             event producer (sparse digits through a C++ library, npz, basf2)
 """
 
 from ieagan_torch.core.config import DEFAULT_CONFIG, event_size, load_config

@@ -26,6 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ieagan_torch.utils.sampling import draw_device
+
 POLICY_DRAWS = {
     "color": ("brightness", "saturation", "contrast"),
     "translation": ("t_h", "t_w"),
@@ -50,10 +52,12 @@ def _uniform(generator, b: int, device, dtype: torch.dtype):
 
 
 def sample_diff_aug_draws(generator: torch.Generator | None, b: int, h: int, w: int,
-                          policy: str = "color,translation,cutout", device="cpu",
+                          policy: str = "color,translation,cutout", device=None,
                           dtype: torch.dtype = torch.float32) -> dict:
     """The draws ``diff_augment`` needs for a (b, h, w, c) batch of
-    ``dtype`` images under ``policy``, from ``generator`` on ``device``."""
+    ``dtype`` images under ``policy``, from ``generator`` on ``device``
+    (by default the generator's device, and the GPU without a generator)."""
+    device = draw_device(generator, device)
     draws = {}
     uniform = lambda: _uniform(generator, b, device, dtype)
     for p in _policies(policy):

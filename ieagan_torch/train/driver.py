@@ -6,24 +6,35 @@ run dir ``<outputroot>/<run_name>/{samples,weights,logs}``, seed, init or
 resume (with the stale ``best_FID`` floor), loggers and metadata, the debug
 path (synthetic batches made once on the device and cycled) or the dataset
 path (threaded loader, uploads in its producer thread), the epoch loop with
-``log_interval``, ``sv_log_interval``, ``save_every``, ``stop_after`` and a
-final checkpoint, each checkpoint followed by a fixed-z sample grid, a
-per-class sample sheet and the similarity heatmaps. ``trace_dir`` writes a
-``torch.profiler`` Chrome trace of steps ``trace_start`` ..
-``trace_start + trace_steps``.
+``log_interval``, ``sv_log_interval``, ``save_every``, ``test_every``,
+``stop_after`` and a final checkpoint, each checkpoint followed by a fixed-z
+sample grid, a per-class sample sheet and the similarity heatmaps.
+``trace_dir`` writes a ``torch.profiler`` Chrome trace of steps
+``trace_start`` .. ``trace_start + trace_steps``.
 
-Not ported yet (ROADMAP A8, A10): the FID test (``run`` refuses a run that
-would reach ``test_every``, where the JAX driver evaluates FID; nothing is
-skipped quietly) and the mesh path (``mesh`` raises). The JAX driver's
-retries on ``RESOURCE_EXHAUSTED`` exist for a network-attached TPU and have
-no twin.
+The FID test (``run_test``) runs ``ieagan_torch.eval.fid_eval_once`` in a
+subprocess on the checkpoint just saved (``fid_subprocess``, the default;
+the child's memory is returned when it exits) or computes FID in process,
+logs FID (and KID and physics extras) to the metrics stream, keeps invalid
+FIDs out of ``best_FID``, and writes ``best<n>`` checkpoints rotating over
+``num_best_copies``.
+
+Not ported yet (ROADMAP A10): the mesh path (``mesh`` raises). The JAX
+driver's retries on ``RESOURCE_EXHAUSTED`` exist for a network-attached TPU
+and have no twin.
 """
 
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import os
 import pathlib
+import signal
+import subprocess
+import sys
+import threading
 import time
 
 import numpy as np
@@ -31,6 +42,7 @@ import torch
 
 from ieagan_torch.core.config import DEFAULT_CONFIG
 from ieagan_torch.core.precision import get_policy
+from ieagan_torch.eval import fid as fid_eval
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import denorm, device_event_transform
@@ -76,20 +88,132 @@ def save_event_grid(imgs, path) -> np.ndarray:
     return grid
 
 
-def run_test(*args, **kwargs):
-    """The FID test and best-checkpoint bookkeeping of the JAX driver
-    (``ieagan_tpu/train/driver.py:441``): not ported yet (ROADMAP A8)."""
-    raise NotImplementedError("the FID test is not ported yet (ROADMAP A8): set test_every "
-                              "past the run's last iteration")
+def run_test(state, state_dict: dict, config: dict, metrics_log):
+    """The FID test and best-checkpoint bookkeeping (twin of
+    ``ieagan_tpu/train/driver.py:441-520``; reference: train_fns.py:209-233).
+    A non-finite or negative FID is logged but never tracked: the Fréchet
+    distance is non-negative, and such a value would beat every real score
+    for the rest of the run."""
+    itr = int(state_dict["itr"])
+    if bool(config.get("fid_subprocess", True)):
+        res = _run_fid_subprocess(state, state_dict, config)
+        if res is None:
+            return
+        fid = float(res["fid"])
+        extras = {}
+        if "kid" in res:
+            extras["KID"] = float(res["kid"])
+            if "kid_floor" in res:  # the real-vs-real floor, always shown beside it
+                extras["KID_floor"] = float(res["kid_floor"])
+            print(f"The KID score is {res['kid']}" + (
+                f" (real-vs-real floor {res['kid_floor']})" if "kid_floor" in res else ""))
+        if "physics" in res:
+            p = res["physics"]
+            extras["phys_occupancy"] = p["mean_occupancy"]
+            extras["phys_mean_charge"] = p["mean_charge"]
+            print(f"physics @{p['n_events']}ev: occupancy={p['mean_occupancy']:.5f} "
+                  f"mean_charge={p['mean_charge']:.2f} -> {p['pickle']}")
+        if extras:
+            metrics_log.log(itr=itr, **extras)
+    else:
+        try:
+            fid = fid_eval.compute_fid_from_state(state, config)
+        except FileNotFoundError as e:
+            print(f"FID reference stats unavailable ({e}); skipping test")
+            return
+        finally:
+            if bool(config.get("fid_free_device_cache", True)):
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+    print(f"The FID score is {fid}")
+    if not np.isfinite(fid) or fid < 0:
+        print(f"FID {fid} is invalid (Fréchet >= 0); excluded from best-checkpoint tracking")
+        metrics_log.log(itr=itr, FID=float(fid))
+        return
+    if config.get("which_best", "FID") == "FID" and fid < state_dict["best_FID"]:
+        # best<n> with num_best_copies rotation (reference: train_fns.py:222-231)
+        n = state_dict.get("save_best_num", 0)
+        print(f"rotating best{n} checkpoint (FID {fid:.2f} < {state_dict['best_FID']:.2f})",
+              flush=True)
+        save_checkpoint(pathlib.Path(config["outputroot"]) / config["run_name"] / "weights",
+                        state, dict(state_dict, best_FID=float(fid)), f"best{n}")
+        state_dict["save_best_num"] = (n + 1) % int(config.get("num_best_copies", 2))
+    state_dict["best_FID"] = min(state_dict["best_FID"], fid)
+    metrics_log.log(itr=itr, FID=float(fid))
 
 
-def _last_itr(itr0: int, epoch0: int, config: dict, steps_per_epoch: int) -> int:
-    """The iteration the loop will end at."""
-    epochs = max(0, int(config["num_epochs"]) - epoch0)
-    if epochs == 0 or steps_per_epoch == 0:
-        return itr0
-    stop_after = int(config.get("stop_after", 10 ** 9))
-    return min(itr0 + epochs * steps_per_epoch, max(stop_after, itr0 + 1))
+def _run_fid_subprocess(state, state_dict: dict, config: dict):
+    """Run ``python -m ieagan_torch.eval.fid_eval_once`` on the checkpoint of
+    this itr (else the newest); returns its JSON result, or None when there
+    is no checkpoint or the evaluation failed or timed out. The child runs
+    on the run's device type. While it runs, a line every 60 s tells a
+    watchdog reading the log that the run is alive, and a SIGTERM to this
+    process kills the child first."""
+    runpath = pathlib.Path(config["outputroot"]) / config["run_name"]
+    itr = int(state_dict.get("itr", state.itr))
+    tag = f"copy{itr}"
+    if not (runpath / "weights" / f"G_ema_{tag}.msgpack").exists():
+        tag = latest_checkpoint(runpath / "weights")
+        if tag is None:
+            print("FID subprocess: no checkpoint to evaluate; skipping")
+            return None
+    repo = str(pathlib.Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    if next(state.G.parameters()).device.type == "cpu":
+        env["IEAGAN_PLATFORM"] = "cpu"
+    cmd = [sys.executable, "-m", "ieagan_torch.eval.fid_eval_once", "--run-dir", str(runpath),
+           "--tag", tag]
+    if bool(config.get("test_kid", False)):
+        cmd.append("--kid")
+    n_phys = int(config.get("test_physics_events", 0))
+    if n_phys > 0:
+        cmd += ["--physics-events", str(n_phys)]
+    timeout = float(config.get("fid_subprocess_timeout", 3600))
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    # the pid file leaves a trace for whoever borrows the card if this
+    # process is killed without a chance to kill the child
+    pidfile = runpath / "fid_subprocess.pid"
+    try:
+        pidfile.write_text(str(proc.pid))
+    except OSError:
+        pass
+
+    def _term(signum, frame):
+        proc.kill()
+        raise SystemExit(128 + signum)
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    prev_term = signal.signal(signal.SIGTERM, _term) if main_thread else None
+    t0 = time.time()
+    try:
+        while True:
+            try:
+                stdout, stderr = proc.communicate(timeout=60.0)
+                break
+            except subprocess.TimeoutExpired:
+                if time.time() - t0 > timeout:
+                    proc.kill()
+                    proc.communicate()
+                    print("FID subprocess timed out; skipping test", flush=True)
+                    return None
+                print(f"FID subprocess running ({time.time() - t0:.0f}s)...", flush=True)
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGTERM, prev_term)
+        pidfile.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        print(f"FID subprocess failed rc={proc.returncode}: {stderr[-800:]}", flush=True)
+        return None
+    try:
+        res = json.loads(stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        print(f"FID subprocess output unparsable: {stdout[-400:]}", flush=True)
+        return None
+    print(f"FID eval ({res['tag']}): nonzero_frac={res.get('nonzero_frac', -1):.5f}")
+    return res
 
 
 def run(config: dict, device="cuda"):
@@ -148,7 +272,7 @@ def run(config: dict, device="cuda"):
                 state_dict["best_FID"] = min(best_fids)
 
     train_log = Logger(config)
-    MetricsLogger(config)  # the JSONL stream the FID test appends to (ROADMAP A8)
+    metrics_log = MetricsLogger(config)
     write_metadata(config, state_dict)
 
     use_device_transform = False
@@ -180,9 +304,6 @@ def run(config: dict, device="cuda"):
         steps_per_epoch = len(loader)
 
     itr = int(state.itr)
-    last = _last_itr(itr, int(state_dict.get("epoch", 0)), config, steps_per_epoch)
-    if last // int(config["test_every"]) > itr // int(config["test_every"]):
-        run_test()
     train_step = make_train_step(G, D, config, steps_per_epoch)
 
     print("entering train loop", flush=True)
@@ -232,6 +353,9 @@ def run(config: dict, device="cuda"):
 
             if itr % int(config["save_every"]) == 0:
                 save_and_sample(state, state_dict, config, runpath)
+
+            if itr % int(config["test_every"]) == 0:
+                run_test(state, state_dict, config, metrics_log)
 
             if itr >= stop_after:
                 break

@@ -32,10 +32,21 @@ def _device(G) -> torch.device:
     return next(G.parameters()).device
 
 
+def draw_device(generator: torch.Generator | None, device=None) -> torch.device:
+    """Where a sampler draws: ``device`` when given, else the device of the
+    ``torch.Generator``, else the GPU (the port runs on the CPU only when
+    asked to)."""
+    if device is not None:
+        return torch.device(device)
+    return generator.device if generator is not None else torch.device("cuda")
+
+
 def trunc_trick(generator: torch.Generator | None, shape, bound: float = 1.0,
-                max_iters: int = 16, device="cpu"):
+                max_iters: int = 16, device=None):
     """Normal draws resampled into (-bound, bound) ``max_iters`` times, then
-    clipped (reference: utils/__init__.py:880-884)."""
+    clipped (reference: utils/__init__.py:880-884). ``device``: see
+    ``draw_device``."""
+    device = draw_device(generator, device)
     z = torch.randn(shape, generator=generator, device=device)
     for _ in range(max_iters):
         fresh = torch.randn(shape, generator=generator, device=device)
@@ -45,8 +56,10 @@ def trunc_trick(generator: torch.Generator | None, shape, bound: float = 1.0,
 
 def sample_z(generator: torch.Generator | None, batch: int, dim_z: int,
              z_dist: str = "normal", z_var: float = 1.0, threshold: float = 1.0,
-             device="cpu"):
-    """z over the reference's z_dist surface (utils/__init__.py:85-97)."""
+             device=None):
+    """z over the reference's z_dist surface (utils/__init__.py:85-97).
+    ``device``: see ``draw_device``."""
+    device = draw_device(generator, device)
     if z_dist == "normal":
         return torch.randn((batch, dim_z), generator=generator, device=device) * z_var ** 0.5
     if z_dist == "censored_normal":
@@ -60,10 +73,11 @@ def sample_z(generator: torch.Generator | None, batch: int, dim_z: int,
 
 
 def sample_y(generator: torch.Generator | None, n_classes: int, events: int = 1,
-             y_dist: str = "permuted", device="cpu"):
+             y_dist: str = "permuted", device=None):
     """y: 'permuted' gives each event a fresh permutation of all classes (the
     intra-event training contract, utils/__init__.py:98-106); 'categorical'
-    is iid classes."""
+    is iid classes. ``device``: see ``draw_device``."""
+    device = draw_device(generator, device)
     if y_dist == "permuted":
         return torch.cat([torch.randperm(n_classes, generator=generator, device=device)
                           for _ in range(events)]).long()

@@ -34,16 +34,18 @@ from ieagan_tpu.train.driver import run as jax_run
 from ieagan_tpu.train.driver import save_event_grid as jax_save_event_grid
 from ieagan_tpu.utils import initialize_directories as jax_initialize_directories
 from ieagan_tpu.utils import load_checkpoint as jax_load
+from ieagan_torch.eval import fid
 from ieagan_torch.models.convert import (discriminator_state_from_flax, generator_state_from_flax,
                                          optimizer_state_to_flax)
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.train.cli import build_parser, load_cli_config
-from ieagan_torch.train.driver import run, run_test, save_event_grid
+from ieagan_torch.train.driver import run, save_event_grid
 from ieagan_torch.train.step import init_train_state, make_train_step
 from ieagan_torch.utils.checkpoint import load_checkpoint
 from ieagan_torch.utils.run_dirs import initialize_directories
 from tests.helpers import tiny_config
+from tests.test_torch_eval import PooledExtractor, few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_losses import jax_draws
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -207,14 +209,109 @@ def test_save_event_grid_matches_jax(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
+    """The mesh path is not ported; a run that reaches ``test_every`` is no
+    longer refused (``test_fid_test_in_process``)."""
     cfg = tiny_config(outputroot=str(tmp_path), run_name="r", **dict(RUN, test_every=2))
     initialize_directories(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        run(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         run(dict(cfg, mesh="2"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_test()
+
+
+FID_RUN = dict(fid_dataset_name="tinyfid", num_incep_images=8, fid_gen_chunks=1)
+
+
+def _mint_stats(tmp_path, extractor, kid=False):
+    """Reference stats of 4 random sparse PNGs under ``extractor``, into
+    ``$IEAGAN_STATS_DIR``."""
+    folder = tmp_path / "real"
+    folder.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        img = np.where(rng.random((26, 32)) < 0.1, rng.integers(7, 255, (26, 32)), 0)
+        Image.fromarray(img.astype(np.uint8)).save(folder / f"{i}.png")
+    fid.make_custom_stats("tinyfid", str(folder), extractor=extractor)
+    if kid:
+        fid.make_custom_kid_stats("tinyfid", str(folder), extractor=extractor)
+
+
+def _fid_records(run_dir):
+    path = run_dir / "logs" / "metric_log.jsonl"
+    return [r for r in map(json.loads, path.read_text().splitlines()) if "FID" in r]
+
+
+def test_fid_test_in_process(tmp_path, monkeypatch):
+    """A tiny run that reaches ``test_every`` computes FID in process against
+    the minted stats, logs it, tracks it in ``best_FID`` and writes best0.
+    The extractor is a 16-d stand-in (a 2048-d sqrtm takes minutes under the
+    test run's workers); the subprocess test below runs Inception."""
+    monkeypatch.setenv("IEAGAN_STATS_DIR", str(tmp_path / "stats"))
+    extractor = PooledExtractor()
+    monkeypatch.setattr(fid, "default_extractor", lambda config, device: extractor)
+    _mint_stats(tmp_path, extractor)
+    cfg = tiny_config(outputroot=str(tmp_path), run_name="fid", fid_subprocess=False,
+                      **dict(RUN, debug_batches=2, save_every=2, test_every=2), **FID_RUN)
+    initialize_directories(cfg)
+    state, sd = run(cfg, device="cpu")
+    (rec,) = _fid_records(tmp_path / "fid")
+    assert rec["itr"] == 2 and np.isfinite(rec["FID"]) and rec["FID"] >= 0
+    assert sd["best_FID"] == rec["FID"] and sd["save_best_num"] == 1
+    weights = tmp_path / "fid" / "weights"
+    for comp in ("G", "D", "G_ema", "G_optim", "D_optim"):
+        assert (weights / f"{comp}_best0.msgpack").exists()
+    best = json.loads((weights / "state_dict_best0.json").read_text())
+    assert best["best_FID"] == rec["FID"] and best["itr"] == 2
+    assert json.loads((weights / "state_dict_copy2.json").read_text())["best_FID"] == rec["FID"]
+
+
+def test_best_rotation_and_invalid_fid(tmp_path, monkeypatch):
+    """FIDs 5, 3, -54.13, nan, 4, 1 at itrs 1-6: every one is logged; the
+    negative and the non-finite one are never tracked; the improvements
+    write best0, best1, then best0 again (``num_best_copies`` 2)."""
+    scores = iter([5.0, 3.0, -54.13, float("nan"), 4.0, 1.0])
+    monkeypatch.setattr(fid, "compute_fid_from_state", lambda state, config: next(scores))
+    cfg = tiny_config(outputroot=str(tmp_path), run_name="rot", fid_subprocess=False,
+                      **dict(RUN, debug_batches=6, save_every=1000, test_every=1))
+    initialize_directories(cfg)
+    _, sd = run(cfg, device="cpu")
+    logged = [r["FID"] for r in _fid_records(tmp_path / "rot")]
+    assert logged[:3] == [5.0, 3.0, -54.13] and np.isnan(logged[3]) and logged[4:] == [4.0, 1.0]
+    assert sd["best_FID"] == 1.0 and sd["save_best_num"] == 1
+    weights = tmp_path / "rot" / "weights"
+    best = {n: json.loads((weights / f"state_dict_best{n}.json").read_text()) for n in (0, 1)}
+    assert (best[0]["itr"], best[0]["best_FID"]) == (6, 1.0)
+    assert (best[1]["itr"], best[1]["best_FID"]) == (2, 3.0)
+    assert not (weights / "G_best2.msgpack").exists()
+
+
+def test_fid_subprocess_reads_a_jax_run(runs, tmp_path, monkeypatch, capsys):
+    """The port's driver resumes the JAX run's copy3 and reaches
+    ``test_every`` at itr 4 without a copy4 on disk: the subprocess
+    (``IEAGAN_PLATFORM=cpu``, since the run is on the CPU) evaluates the
+    newest checkpoint, the JAX package's copy3, and prints one JSON line
+    with FID, KID and physics, which the driver logs and tracks."""
+    import shutil
+    root, *_ = runs
+    shutil.copytree(root / "jax", tmp_path / "jax")
+    monkeypatch.setenv("IEAGAN_STATS_DIR", str(tmp_path / "stats"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the child's torch and BLAS threads
+    _mint_stats(tmp_path, fid.FeatureExtractor(device="cpu"), kid=True)
+    cfg = tiny_config(outputroot=str(tmp_path), run_name="jax", resume=True, fid_subprocess=True,
+                      test_kid=True, test_physics_events=2,
+                      **dict(RUN, num_epochs=2, stop_after=4, save_every=1000, test_every=4),
+                      **FID_RUN)
+    initialize_directories(cfg)
+    _, sd = run(cfg, device="cpu")
+    out = capsys.readouterr().out
+    assert "FID eval (copy3)" in out, out[-2000:]
+    (rec,) = _fid_records(tmp_path / "jax")
+    assert rec["itr"] == 4 and np.isfinite(rec["FID"]) and sd["best_FID"] == rec["FID"]
+    extras = [r for r in map(json.loads, (tmp_path / "jax" / "logs" / "metric_log.jsonl")
+                             .read_text().splitlines()) if "KID" in r]
+    assert len(extras) == 1 and {"KID_floor", "phys_occupancy", "phys_mean_charge"} <= set(
+        extras[0])
+    assert (tmp_path / "jax" / "physics_copy3_2ev.pickle").exists()
+    assert (tmp_path / "jax" / "weights" / "G_ema_best0.msgpack").exists()
+    assert not (tmp_path / "jax" / "fid_subprocess.pid").exists()
 
 
 def test_refuses_existing_run_dir(runs):

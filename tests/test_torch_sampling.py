@@ -111,3 +111,25 @@ def test_plots(tmp_path, monkeypatch, capsys):
     assert grid.shape == (20, 36)
     np.testing.assert_array_equal(grid[10:20, 12:24], imgs[4].astype(np.uint8))
     assert "matplotlib unavailable" in capsys.readouterr().out
+
+
+def test_samplers_draw_on_the_generators_device():
+    """With ``device=None`` the samplers draw on the ``torch.Generator``'s
+    device: a CPU generator gives CPU tensors."""
+    from ieagan_torch.ops.diff_aug import sample_diff_aug_draws
+    gen = torch.Generator().manual_seed(0)
+    outs = [trunc_trick(gen, (3, 4)), sample_z(gen, 2, 3), sample_y(gen, 4, 2),
+            *sample_diff_aug_draws(gen, 2, 8, 8).values()]
+    assert all(t.device.type == "cpu" for t in outs)
+
+
+def test_samplers_without_generator_ask_for_cuda():
+    """With neither a generator nor a device the samplers draw on the GPU
+    (the port runs on the CPU only when asked): under a fake tensor mode the
+    draws are CUDA tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ieagan_torch.ops.diff_aug import sample_diff_aug_draws
+    with FakeTensorMode():
+        outs = [trunc_trick(None, (3, 4)), sample_z(None, 2, 3), sample_y(None, 4, 2),
+                *sample_diff_aug_draws(None, 2, 8, 8).values()]
+        assert all(t.device.type == "cuda" for t in outs)
