@@ -13,11 +13,13 @@ Phases, each timed on a line of its own:
    parallel, and the producer's sparse-digit library with g++, into the
    ignored ``ieagan_torch/kernels/_build``;
 3. kernel vs plain: the fused attention forward (B1) against its plain
-   PyTorch version at the three attention sites of the model, f32 and bf16,
+   PyTorch version at the attention sites of the model (D's proxy RRM at
+   head width 256 and the concat mode's sequences of 80 among them), f32 and
+   bf16,
    with times of the kernel, the plain version, ``scaled_dot_product_attention``
    (a yardstick only; the port never calls it) and the card's bound;
 3b. the same for the fused attention backward (B2), against its plain version
-   and SDPA's backward, at the three sites as the train step gives them;
+   and SDPA's backward, at the sites as the train step gives them;
 3c. ``ieagan_torch.kernels.selfcheck.run_check`` in f32 and bf16: forward and
    backward of ``FlashAttention`` against the plain composition, scored by
    normalized error as the JAX package's Pallas self-check scores them;
@@ -69,6 +71,17 @@ Phases, each timed on a line of its own:
    events per second; (f) ``generate_stats`` against the host path. The
    phase reads nothing under ``stats/``: it mints its own reference
    statistics and runs Inception with the seeded fallback weights.
+10. the options the flagship leaves off, at the flagship's widths from a
+   random init (every SA gamma 0.5): (a) PEGAN: ``generate_batched`` 1 and
+   4 events per call with B1 at G's attention, fused against plain, the
+   reference ``.pth`` round trip (``export_torch`` -> ``from_torch``, bit
+   for bit), ms per event; (b) IEA-GAN as the reference trains it (concat D
+   pass, full-batch RRM sequences, D's proxy RRM at head width 256,
+   nonlinear and prior embeddings, consistency regularization); (c) Proj
+   with CBAM, then ILA, in D and G's plain layers with group norm. (a) and
+   (b) train two f32 steps fused and plain from one state and draws
+   (phase 5's bounds) with B1/B2 launches by site and phase, then two bf16
+   steps; (c) trains with no fused attention, weights moving.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -88,10 +101,15 @@ CHECKPOINT = os.path.join(ROOT, "artifacts", "flagship_r4b")
 # generator's relational-reasoning attention as generate() and the train step
 # give it (1 event x 2 heads); RR_D and D SA are the discriminator's sites at
 # flagship widths, D SA once at B=2 (as checked since the first slice) and
-# once at the train step's batch of 40 images. ODD and WIDE are no site of the
-# model: widths that are padded inside the kernels ((5, 7) -> (32, 32),
-# (100, 48) -> (128, 64)), ragged lengths, and rows that are not 16-byte
-# aligned (ODD in both types, WIDE in bf16), so the element-wise load path runs.
+# once at the train step's batch of 40 images (PEGAN's G attention at 32x96,
+# phase 10a, has the same shape). RR_Dproxy is D's proxy RRM (RRM_prx_D: 4
+# heads of 256, the kernels' 256 instance) at one event and, as concat mode
+# with the full-batch sequence gives it (phase 10b), at one sequence of 80,
+# where RR_D runs at 80 too. ODD, WIDE and ODD256 are no site of the model:
+# widths that are padded inside the kernels ((5, 7) -> (32, 32), (100, 48) ->
+# (128, 64), (200, 130) -> (256, 256), whose second column tile holds two of
+# dv's columns), ragged lengths, and rows that are not 16-byte aligned (ODD
+# and ODD256 in both types, WIDE in bf16), so the element-wise load path runs.
 SITES = [
     ("RR_G", 2, 40, 40, 64, 64, 0.125),
     ("RR_D", 4, 40, 40, 128, 128, 128 ** -0.5),
@@ -99,8 +117,12 @@ SITES = [
     ("D_SA", 40, 3072, 768, 32, 128, 1.0),
     ("ODD", 3, 77, 45, 5, 7, 0.5),
     ("WIDE", 3, 130, 200, 100, 48, 0.2),
+    ("RR_Dproxy", 4, 40, 40, 256, 256, 256 ** -0.5),
+    ("RR_Dproxy", 4, 80, 80, 256, 256, 256 ** -0.5),
+    ("RR_D", 4, 80, 80, 128, 128, 128 ** -0.5),
+    ("ODD256", 3, 77, 45, 200, 130, 0.3),
 ]
-BWD_SITES = [SITES[0], SITES[1], SITES[3], SITES[4], SITES[5]]
+BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9)]
 # |kernel - plain| <= ATOL + RTOL * |plain|. f32: scores of up to 128 products
 # at |s| up to ~20 (scale 1 at D_SA) carry ~1e-6 relative rounding that exp
 # amplifies; 1e-4 bounds it. bf16: o is rounded to bf16 on both sides from
@@ -144,6 +166,43 @@ B1_PER_STEP, B2_PER_STEP = 2 + 3 * 2, 3 + 2 + 1
 DRIVER_RUN = dict(debug=True, debug_batches=4, num_epochs=1, log_interval=1,
                   sv_log_interval=2, save_every=2, test_every=10 ** 6, trace_start=5,
                   trace_steps=1)
+# Phase 10: the options the flagship leaves off, at the flagship's widths from
+# a random init (the repo has weights for none of them): PEGAN (the paper's
+# comparison model with G attention at 32, scripts/eval_all.py), IEA-GAN as
+# the reference trains it (concat D pass with the whole batch as one RRM
+# sequence, D's proxy RRM, nonlinear embedding, prior embedding with a seeded
+# table, consistency regularization), and a BigGAN-style Proj model with
+# CBAM (then ILA) in D and G's plain layers, group norm and no hierarchy.
+OPTION_CONFIGS = {
+    "10a PEGAN": dict(G_attn="32", RRM_prx_G=False, rdof_dim=0),
+    "10b reference parity": dict(split_D=False, rrm_full_batch_sequence=True, RRM_prx_D=True,
+                                 nonlinear_embed=True, prior_embed=True, Con_reg=True),
+    "10c Proj": dict(conditional_strategy="Proj", attn_type="cbam", D_attn="32", Con_reg=True,
+                     RRM_prx_G=False, rdof_dim=0, hier=False, norm_style="grp_16",
+                     G_param="plain"),
+}
+# Launches per train step by kernel and site (phase 10, one event of 40):
+# B1 at every attention of every forward; B2 wherever the loss needs the
+# site's gradient. 10a: G SA in both G passes, D SA and RR_D in D's three
+# passes; B2 at G SA in the G phase, D SA in all three D passes, RR_D in the
+# D phase's real pass and the G phase. 10b: one D pass over [fake; real]
+# (RRMs at one sequence of 80), the consistency pass over the reals and the
+# G phase's pass (RRMs at 40); RR_Dproxy's gradient is needed only where a
+# loss reads the proxy with D's parameters live: the concat pass's contrastive
+# loss (the consistency loss reads no proxy, and in the G phase the proxy
+# depends on no parameter of G). 10c runs no fused attention: no RRM, CBAM
+# and ILA have no kernel.
+OPTION_LAUNCHES = {
+    "10a PEGAN": {("B1", "SA"): 5, ("B1", "RR_D L40"): 3,
+                  ("B2", "SA"): 4, ("B2", "RR_D L40"): 2},
+    "10b reference parity": {
+        ("B1", "RR_G L40"): 2, ("B1", "SA"): 3, ("B1", "RR_D L80"): 1, ("B1", "RR_D L40"): 2,
+        ("B1", "RR_Dproxy L80"): 1, ("B1", "RR_Dproxy L40"): 2,
+        ("B2", "RR_G L40"): 1, ("B2", "SA"): 3, ("B2", "RR_D L80"): 1, ("B2", "RR_D L40"): 2,
+        ("B2", "RR_Dproxy L80"): 1},
+    "10c Proj": {},
+}
+OPTION_PRIOR_SEED = 40
 DRIVER_METRICS = ("D_loss_real", "D_loss_fake", "unif_loss_d", "iea_loss", "unif_loss_g",
                   "G_loss")
 # bf16 against f32 (phase 8): one step from copy16000 under each policy on the
@@ -1319,6 +1378,374 @@ def eval_phase(torch, np):
     return out
 
 
+def site_of(shape):
+    """The attention site of a fused call by its q (or dO) shape (B, L, d)."""
+    _, length, width = shape
+    if length >= 1000:
+        return "SA"
+    return {64: "RR_G", 128: "RR_D", 256: "RR_Dproxy"}.get(width, str(tuple(shape))) + f" L{length}"
+
+
+def option_state(torch, cfg, compute_dtype, seed=10):
+    """A random-init TrainState for ``cfg`` on the card, every SA gamma at 0.5
+    so that the attention counts (gamma starts at 0)."""
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.models.discriminator import Discriminator
+    from ieagan_torch.models.generator import Generator
+    from ieagan_torch.ops.attention import SelfAttention2d
+    from ieagan_torch.train.step import init_train_state
+
+    full = dict(DEFAULT_CONFIG, **cfg)
+    with torch.device("cuda"):
+        G, D = Generator.from_config(full), Discriminator.from_config(full)
+    state = init_train_state(G, D, full, torch.Generator(device="cuda").manual_seed(seed),
+                             compute_dtype)
+    with torch.no_grad():
+        for m in [*G.modules(), *D.modules(), *state.G_ema.modules()]:
+            if isinstance(m, SelfAttention2d):
+                m.gamma.fill_(0.5)
+    return state
+
+
+def option_schedule(torch, gen, cfg, steps, es=40):
+    """The draws of ``steps`` f32 train steps under ``cfg``, in the step's
+    order (``train/step.py``)."""
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.ops.diff_aug import sample_cr_draws, sample_diff_aug_draws
+    full = dict(DEFAULT_CONFIG, **cfg)
+    randn = lambda n: torch.randn((es, n), generator=gen, device="cuda")
+    latents = lambda: [randn(128)] + ([randn(full["rdof_dim"])] if full["RRM_prx_G"] else [])
+    aug = lambda: sample_diff_aug_draws(gen, es, 256, 768, device="cuda")
+    out = []
+    for _ in range(steps):
+        out += latents() + [aug(), aug()]
+        out += [sample_cr_draws(gen, es, 256, 768, device="cuda")] if full["Con_reg"] else []
+        out += latents() + [aug()]
+    return out
+
+
+class SiteCounter:
+    """Observation only: wraps FlashAttention's forward and backward to count
+    calls by kernel, site and phase (D phase while D takes gradients)."""
+
+    def __init__(self, fa):
+        self.fa, self.counts, self.D = fa, {}, None
+
+    def __enter__(self):
+        fa = self.fa
+        self.fwd, self.bwd = fa.FlashAttention.forward, fa.FlashAttention.backward
+
+        def seen(kernel, shape):
+            phase = "D" if self.D is not None and self.D.linear0.weight.requires_grad else "G"
+            key = (kernel, site_of(shape), phase)
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+        fwd, bwd = self.fwd, self.bwd
+        fa.FlashAttention.forward = staticmethod(
+            lambda ctx, q, *a: seen("B1", q.shape) or fwd(ctx, q, *a))
+        fa.FlashAttention.backward = staticmethod(
+            lambda ctx, do: seen("B2", do.shape) or bwd(ctx, do))
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.FlashAttention.forward = self.fwd
+        self.fa.FlashAttention.backward = self.bwd
+
+    def take(self):
+        counts, self.counts = self.counts, {}
+        return counts
+
+
+def by_site(counts):
+    """{(kernel, site): n} summed over phases."""
+    out = {}
+    for (kernel, site, _), n in counts.items():
+        out[(kernel, site)] = out.get((kernel, site), 0) + n
+    return out
+
+
+class F64Attention:
+    """Observation only: the plain attention composition taken in f64 (its
+    inputs widened, its output rounded to their type), the yardstick both
+    f32 attentions of phase 10's steps are read against."""
+
+    def __init__(self, torch):
+        import ieagan_torch.ops.attention as attention
+        import ieagan_torch.ops.rrm as rrm
+        self.modules, self.torch = (attention, rrm), torch
+
+    def __enter__(self):
+        torch = self.torch
+        self.saved = [m.dot_softmax_attention for m in self.modules]
+
+        def f64(q, k, v, scale=1.0, fused=False):
+            del fused
+            logits = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+            return torch.matmul(torch.softmax(logits, dim=-1), v.double()).to(v.dtype)
+
+        for m in self.modules:
+            m.dot_softmax_attention = f64
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.modules, self.saved):
+            m.dot_softmax_attention = fn
+
+
+def option_train(torch, np, name, cfg, sites, steps=2):
+    """Phase 10 training: ``steps`` f32 steps fused and plain from the same
+    state and draws (phase 5's bounds on every step's metrics and on the
+    first step's per-leaf gradients), the kernels' launches per step by site,
+    then ``steps`` bf16 steps. The first step's gradients of both are also
+    read against the same step with the attention in f64 (printed). Returns
+    per-step launches and ms."""
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.train.step import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((40, 256, 768, 1), generator=gen, device="cuda") * 2 - 1
+    y = torch.randperm(40, generator=gen, device="cuda")
+    schedule = option_schedule(torch, gen, cfg, steps)
+    runs = {}
+    for label, fused in (("fused", True), ("plain", False), ("f64", False)):
+        run_cfg = dict(cfg, use_pallas_attention=fused)
+        if label == "f64":
+            with F64Attention(torch):
+                state = option_state(torch, run_cfg, torch.float32)
+                m = make_train_step(state.G, state.D, run_cfg, draw_schedule=schedule,
+                                    capture_grads=True)(state, x, y)
+            runs[label] = ([m],)
+            del state, m
+            torch.cuda.empty_cache()
+            continue
+        state = option_state(torch, run_cfg, torch.float32)
+        before = {k: v.clone() for k, v in state.G.state_dict().items()}
+        before_d = {k: v.clone() for k, v in state.D.state_dict().items()}
+        step = make_train_step(state.G, state.D, run_cfg, draw_schedule=schedule,
+                               capture_grads=True)
+        sites.D = state.D
+        mets, ms, launches = [], [], []
+        for _ in range(steps):
+            fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+            sites.take()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append({"B1": fa.attention_fwd.launches, "B2": fa.attention_bwd.launches,
+                             "sites": sites.take()})
+            mets.append(m)
+        moved = {net: sum(not torch.equal(v, b[k]) for k, v in mod.state_dict().items()
+                          if k in dict(mod.named_parameters()))
+                 for net, mod, b in (("G", state.G, before), ("D", state.D, before_d))}
+        runs[label] = (mets, ms, launches, moved)
+        del state, step
+        torch.cuda.empty_cache()
+    mets, ms, launches, moved = runs["fused"]
+    expect = OPTION_LAUNCHES[name]
+    for i, (m, t, c) in enumerate(zip(mets, ms, launches)):
+        got = by_site(c["sites"])
+        print(f"{name} f32 step {i + 1}: {t:.1f} ms, B1 {c['B1']}, B2 {c['B2']} launches, by "
+              f"site {json.dumps({f'{k} {s}': n for (k, s), n in sorted(got.items())})}; "
+              + json.dumps({k: v for k, v in m.items() if not k.startswith('_')}), flush=True)
+        if not all(np.isfinite(v) for k, v in m.items() if not k.startswith("_")):
+            raise SystemExit(f"{name} step {i + 1}: non-finite metric")
+        if got != expect or (c["B1"], c["B2"]) != (
+                sum(n for (k, _), n in expect.items() if k == "B1"),
+                sum(n for (k, _), n in expect.items() if k == "B2")):
+            raise SystemExit(f"{name} step {i + 1}: launches {c['B1']}, {c['B2']} by site {got}, "
+                             f"expected {expect}")
+    print(f"{name}: parameter leaves moved in step 1 and 2: {moved}", flush=True)
+    if not (moved["G"] and moved["D"]):
+        raise SystemExit(f"{name}: the weights did not move")
+    if expect:
+        pm = runs["plain"][0]
+        for i in range(steps):
+            keys = [k for k in pm[i] if not k.startswith("_")]
+            m_rel = max(abs(mets[i][k] - pm[i][k]) / max(abs(pm[i][k]), 1e-12) for k in keys)
+            if not all(abs(mets[i][k] - pm[i][k]) <= STEP_METRIC_ATOL + STEP_METRIC_RTOL
+                       * abs(pm[i][k]) for k in keys):
+                raise SystemExit(f"{name} step {i + 1}: fused metrics disagree with plain "
+                                 f"(max rel {m_rel:.3e})")
+            print(f"{name} fused vs plain, step {i + 1}: metrics max rel diff {m_rel:.3e}",
+                  flush=True)
+        grads = lambda m: {**{f"G.{k}": v for k, v in m["_grads_G"].items()},
+                           **{f"D.{k}": v for k, v in m["_grads_D"].items()}}
+        errs = leaf_errors(np, grads(mets[0]), grads(pm[0]))
+        med = float(np.median(list(errs.values())))
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        print(f"{name} fused vs plain, step 1 gradients: per-leaf normalized error max "
+              f"{max(errs.values()):.3e}, median {med:.3e} over {len(errs)} leaves "
+              f"(tolerance max {STEP_GRAD_MAX}, median {STEP_GRAD_MEDIAN}); worst {worst}",
+              flush=True)
+        if not (max(errs.values()) < STEP_GRAD_MAX and med < STEP_GRAD_MEDIAN):
+            raise SystemExit(f"{name}: the fused step's gradients disagree with the plain step's")
+        for label in ("fused", "plain"):
+            e = leaf_errors(np, grads(runs[label][0][0]), grads(runs["f64"][0][0]))
+            worst = sorted(e.items(), key=lambda kv: -kv[1])[:2]
+            print(f"{name} {label} vs f64 attention, step 1 gradients (yardstick): per-leaf max "
+                  f"{max(e.values()):.3e}, median {float(np.median(list(e.values()))):.3e}; "
+                  f"worst {worst}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    state = option_state(torch, cfg, torch.bfloat16)
+    step = make_train_step(state.G, state.D, cfg)
+    sites.D = state.D
+    bf16_ms = []
+    for i in range(steps):
+        fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+        sites.take()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, x, y, gen)
+        torch.cuda.synchronize()
+        bf16_ms.append((time.perf_counter() - t) * 1e3)
+        got = by_site(sites.take())
+        print(f"{name} bf16 step {i + 1}: {bf16_ms[-1]:.1f} ms, B1 {fa.attention_fwd.launches}, "
+              f"B2 {fa.attention_bwd.launches} launches; "
+              + json.dumps({k: v for k, v in m.items() if not k.startswith("_")}), flush=True)
+        if got != expect or not all(np.isfinite(v) for v in m.values()):
+            raise SystemExit(f"{name} bf16 step {i + 1}: launches {got} (expected {expect}) or "
+                             "a non-finite metric")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches[-1], ms, bf16_ms
+
+
+def pegan_deploy(torch, np, cfg):
+    """Phase 10a's deployment: PEGAN from a random init through the user's
+    entry points, fused against plain, and through the reference layout."""
+    import tempfile
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.deploy import Model, generate_batched
+
+    def model(config, seed=12):
+        m = Model(config=config, device="cuda", seed=seed)
+        with torch.no_grad():
+            for name in ("attn_2",):
+                getattr(m.G, name).gamma.fill_(0.5)
+        return m
+
+    fused = model(cfg)
+    plain = model(dict(cfg, use_pallas_attention=False))
+    es, width = fused.event_size, 256 * fused.config["H_base"]
+    if [n for n in fused.G.layer_names if n.startswith("attn")] != ["attn_2"]:
+        raise SystemExit(f"PEGAN: G attention at {fused.G.layer_names}, expected attn_2")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fa.attention_fwd.launches = 0
+    one = generate_batched(fused, 1, gen)
+    four = generate_batched(fused, 4, gen)
+    torch.cuda.synchronize()
+    launches = fa.attention_fwd.launches
+    print(f"10a PEGAN deploy: generate_batched(1) and (4), {launches} B1 launches", flush=True)
+    if launches != 2:
+        raise SystemExit(f"PEGAN: B1 launched {launches} times for 2 generator calls")
+    check_events(np, one, (es, 250, width), "10a PEGAN generate_batched(1)")
+    check_events(np, four, (4 * es, 250, width), "10a PEGAN generate_batched(4)")
+    z, rdof = fused.draw(1, gen)
+    with torch.inference_mode():
+        err = float((fused.G(z, fused.labels(1), rdof) - plain.G(z, plain.labels(1), rdof))
+                    .abs().max())
+    print(f"10a PEGAN fused vs plain attention, tanh output: max abs diff {err:.3e} "
+          f"(tolerance {FUSED_VS_PLAIN_ATOL})", flush=True)
+    if not err <= FUSED_VS_PLAIN_ATOL:
+        raise SystemExit("PEGAN: the fused model disagrees with the plain-attention model")
+    with tempfile.TemporaryDirectory() as root:
+        back = Model.from_torch(fused.export_torch(os.path.join(root, "pegan.pth")),
+                                config=cfg, device="cuda")
+    want, got = fused.G.state_dict(), back.G.state_dict()
+    if set(want) != set(got) or not all(torch.equal(got[k], v) for k, v in want.items()):
+        raise SystemExit("PEGAN: export_torch -> from_torch changed the state dict")
+    if not torch.equal(back.events(z, rdof), fused.events(z, rdof)):
+        raise SystemExit("PEGAN: export_torch -> from_torch changed the event")
+    print(f"10a PEGAN export_torch -> from_torch: {len(want)} tensors bit-equal, the same event",
+          flush=True)
+    per_event = {}
+    for epc in (1, 4):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            generate_batched(fused, epc, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / epc)
+        per_event[epc] = sorted(times)[len(times) // 2]
+        print(f"10a PEGAN generate_batched({epc}): {per_event[epc]:.2f} ms per event (median of "
+              "4, host clock after synchronize)", flush=True)
+    del fused, plain, back
+    torch.cuda.empty_cache()
+    return launches, per_event
+
+
+def options_phase(torch, np):
+    """Phase 10: the options the flagship leaves off, at full width."""
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.ops.prior import set_prior_features
+
+    set_prior_features(np.random.default_rng(OPTION_PRIOR_SEED).uniform(0.5, 2.0, 40))
+    out = {}
+    with SiteCounter(fa) as sites:
+        t0 = time.perf_counter()
+        name = "10a PEGAN"
+        out["deploy_launches"], out["pegan_ms_per_event"] = pegan_deploy(
+            torch, np, OPTION_CONFIGS[name])
+        out[name] = option_train(torch, np, name, OPTION_CONFIGS[name], sites)
+        phase(name, t0)
+        t0 = time.perf_counter()
+        name = "10b reference parity"
+        out[name] = option_train(torch, np, name, OPTION_CONFIGS[name], sites)
+        phase(name, t0)
+        t0 = time.perf_counter()
+        name = "10c Proj"
+        out[name] = option_proj(torch, np, OPTION_CONFIGS[name], sites)
+        phase(name, t0)
+    return out
+
+
+def option_proj(torch, np, cfg, sites):
+    """Phase 10c: two f32 steps of the Proj model with CBAM in D, then one
+    with ILA: finite metrics, weights that moved, no fused attention."""
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.train.step import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.rand((40, 256, 768, 1), generator=gen, device="cuda") * 2 - 1
+    y = torch.randperm(40, generator=gen, device="cuda")
+    ms = []
+    for attn, steps in (("cbam", 2), ("ila", 1)):
+        run_cfg = dict(cfg, attn_type=attn)
+        state = option_state(torch, run_cfg, torch.float32)
+        sites.D = state.D
+        before = {k: v.clone() for k, v in state.G.state_dict().items()}
+        before_d = {k: v.clone() for k, v in state.D.state_dict().items()}
+        step = make_train_step(state.G, state.D, run_cfg)
+        fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            print(f"10c Proj ({attn} in D) f32 step {i + 1}: {ms[-1]:.1f} ms; " + json.dumps(m),
+                  flush=True)
+            if set(m) != {"D_loss_real", "D_loss_fake", "G_loss"} or not all(
+                    np.isfinite(v) for v in m.values()):
+                raise SystemExit(f"10c Proj ({attn}): metrics {m}")
+        moved = {net: sum(not torch.equal(v, b[k]) for k, v in mod.state_dict().items()
+                          if k in dict(mod.named_parameters()))
+                 for net, mod, b in (("G", state.G, before), ("D", state.D, before_d))}
+        kernels = {"B1": fa.attention_fwd.launches, "B2": fa.attention_bwd.launches}
+        print(f"10c Proj ({attn} in D): parameter leaves moved {moved}; fused attention kernels "
+              f"that ran: {kernels} (none expected: no RRM, no SA)", flush=True)
+        if not (moved["G"] and moved["D"]) or any(kernels.values()) or sites.take():
+            raise SystemExit(f"10c Proj ({attn}): weights moved {moved}, kernels {kernels}")
+        del state, step
+        torch.cuda.empty_cache()
+    return ms
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -1391,6 +1818,10 @@ def main():
     ev = eval_phase(torch, np)
     phase("evaluation and producer", t0)
 
+    t0 = time.perf_counter()
+    opt = options_phase(torch, np)
+    phase("options at full width", t0)
+
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
                            and r["dtype"] == "float32")
@@ -1426,6 +1857,43 @@ def main():
                  "ms": b2h["ms"], "plain_ms": b2h["plain_ms"], "bound_ms": b2h["bound_ms"],
                  "bound_by": b2h["bound_by"], "library_ms": b2h["library_ms"]},
     }]
+    # Phase 10's sites: D's proxy RRM in the 256 instance (at 80, as the
+    # reference-parity D phase gives it) and PEGAN's G attention (D SA's
+    # shape); launches from one fused f32 step of 10b and from 10a's deploy.
+    pick_site = lambda rs, site, shape, dtype="float32": next(
+        r for r in rs if r["site"] == site and r["shape"] == shape and r["dtype"] == dtype)
+    for kernel, rs, err_keys in (("B1", rows, ("max_abs_err_o",)),
+                                 ("B2", bwd_rows, ("max_abs_err_dq", "max_abs_err_dk",
+                                                   "max_abs_err_dv"))):
+        r = pick_site(rs, "RR_Dproxy", [4, 80, 80, 256, 256])
+        r16 = pick_site(rs, "RR_Dproxy", [4, 80, 80, 256, 256], "bfloat16")
+        counts = {k: n for k, n in by_site(opt["10b reference parity"][0]["sites"]).items()
+                  if k[0] == kernel and k[1].startswith("RR_Dproxy")}
+        kernels.append({
+            "name": f"attention_{'fwd' if kernel == 'B1' else 'bwd'} ({kernel}), 256 instance",
+            "route": "cuda", "source": kernels[0 if kernel == "B1" else 1]["source"],
+            "replaces": kernels[0 if kernel == "B1" else 1]["replaces"],
+            "launches": sum(counts.values()),
+            "max_abs_err": max(r[k] for k in err_keys), "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "site": "RR_Dproxy f32 4x80x80x256x256 (phase 10b, one f32 step)",
+            "launches_by_site": {s_: n for (_, s_), n in counts.items()},
+            "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
+                     "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+                     "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
+    kernels.append({
+        "name": "attention_fwd (B1) at PEGAN's G attention", "route": "cuda",
+        "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
+        "launches": opt["deploy_launches"], "max_abs_err": b1["max_abs_err_o"], "ms": b1["ms"],
+        "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+        "library_ms": b1["library_ms"],
+        "site": "G SA f32 40x3072x768x32x128 (D_SA's shape; phase 10a deploy, 2 generator calls)"})
+    print(f"phase 10: PEGAN {opt['pegan_ms_per_event'][1]:.2f} / "
+          f"{opt['pegan_ms_per_event'][4]:.2f} ms per event (1 / 4 events per call); f32 / bf16 "
+          "ms per step: " + "; ".join(
+              f"{n} {sum(opt[n][1]) / len(opt[n][1]):.1f} / {sum(opt[n][2]) / len(opt[n][2]):.1f}"
+              for n in ("10a PEGAN", "10b reference parity"))
+          + f"; 10c Proj f32 {sum(opt['10c Proj']) / len(opt['10c Proj']):.1f}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

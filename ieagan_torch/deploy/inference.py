@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from ieagan_torch.core.config import DEFAULT_CONFIG
-from ieagan_torch.models.convert import generator_state_from_flax
+from ieagan_torch.models.convert import (generator_state_from_flax,
+                                         generator_state_from_torch,
+                                         generator_state_to_torch)
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import generate_postprocess
 from ieagan_torch.utils.flax_msgpack import read_checkpoint, resolve_generator_checkpoint
@@ -30,8 +32,10 @@ class Model:
     """Generator + weights on one device, ready to generate events.
 
     ``Model(config)`` builds a randomly initialized generator from ``seed``;
-    ``Model.restore(path)`` loads a checkpoint of the JAX package. Parameters
-    stay f32; ``dtype`` is the compute type of the latents and activations.
+    ``Model.restore(path)`` loads a checkpoint of the JAX package and
+    ``Model.from_torch(path)`` a reference-layout PyTorch ``.pth``;
+    ``export_torch(path)`` writes one. Parameters stay f32; ``dtype`` is the
+    compute type of the latents and activations.
     """
 
     def __init__(self, config: dict | None = None, device="cuda",
@@ -63,6 +67,36 @@ class Model:
         model.G.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
                                 strict=True)
         return model
+
+    @classmethod
+    def from_torch(cls, state_dict_path: str, config: dict | None = None, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> "Model":
+        """Load a Model from a reference-layout PyTorch Generator state dict
+        (``.pth``; reference: model.py:139-487) through
+        ``models/convert.py::generator_state_from_torch``; ``config``
+        overrides ``FROZEN_CONFIG`` as in ``restore``. The file is read with
+        ``weights_only=True``: a pickled module is refused (the JAX package
+        unpickles it, which needs the reference code on the path)."""
+        import pickle
+        model = cls(config=config, device=device, dtype=dtype, _random_init=False)
+        try:
+            sd = torch.load(state_dict_path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError as err:
+            raise ValueError(f"{state_dict_path} is not a plain state dict of tensors "
+                             "(a pickled module?); save model.state_dict() instead") from err
+        if not isinstance(sd, dict):
+            raise ValueError(f"{state_dict_path} holds a {type(sd).__name__}, not a state dict")
+        state = generator_state_from_torch(sd, int(model.config["G_depth"]),
+                                           template=model.G.state_dict())
+        model.G.load_state_dict({k: torch.tensor(v) for k, v in state.items()}, strict=True)
+        return model
+
+    def export_torch(self, out_path: str) -> str:
+        """Write the generator as a reference-layout PyTorch state dict
+        (``.pth``), the inverse of ``from_torch``. Unlike the JAX package's
+        export, it needs no reference code: the port knows the key names."""
+        torch.save(generator_state_to_torch(self.G), out_path)
+        return out_path
 
     def labels(self, events: int) -> torch.Tensor:
         """Sensor labels 0..event_size-1, once per event."""

@@ -7,7 +7,7 @@
 //   dQ = dS k,  dK = dS^T q
 // q (B, Lq, dk), k (B, Lkv, dk), v (B, Lkv, dv), o and dO (B, Lq, dv), lse and
 // delta (B, Lq) f32. Inputs are f32 or bf16; dq, dk, dv take their type. All
-// accumulation is f32. dk, dv <= 128, any Lq, Lkv. Row-major, contiguous.
+// accumulation is f32. dk, dv <= 256, any Lq, Lkv. Row-major, contiguous.
 //
 // Replaces ieagan_tpu/ops/pallas/flash_attention.py::_bwd_kernel (launched by
 // _bwd, bound to the forward by defvjp). That kernel keeps the whole padded q,
@@ -46,6 +46,15 @@
 // price of no atomics is that s = q k^T is recomputed in both kernels (seven
 // products instead of five).
 //
+// Width 256 (D's proxy RRM, 4 heads of 256 at L = 40 or 80; launch-bound):
+// one (256, 256) instance. dK and dV of a 64-row kv tile at 256 would take
+// 256 f32 registers a thread on 4 warps, so each block computes one column
+// tile of 128 of its outputs (dK and dV, or dQ), one per blockIdx.z, and
+// recomputes s, p, dP and dS over the full widths for each. In f32 the
+// block's own k and v (or q and dO) at 256 take 133 KB, so that instance
+// streams the other two in ring tiles of 32 rows through one stage (200 KB
+// in all; BwdLayout); bf16 keeps tiles of 64 and two stages.
+//
 // Each kernel adds every 32-column half's products to its f32 accumulators
 // through a fresh partial (mma_acc_b): the tensor cores' truncating
 // accumulation, straight over Lq = 3072 rows, drifts past the f32 tolerance.
@@ -68,21 +77,34 @@ template <typename T, int DK, int DV>
 struct BwdLayout {
   static constexpr int kSK = row_stride<T>(DK);
   static constexpr int kSV = row_stride<T>(DV);
+  // Output columns per block (dK, dV, dQ); DK / kColsK == DV / kColsV column
+  // tiles, one per blockIdx.z.
+  static constexpr int kColsK = col_tile(DK), kColsV = col_tile(DV);
+  static constexpr int kColTiles = DK / kColsK;
+  static_assert(DV / kColsV == kColTiles, "dk and dv take the same column tiles");
   // The block's own rows (k and v, or q and dO), then the ring, whose stages
   // hold the streamed rows (q and dO, or k and v) and, for dK/dV, their lse
   // and delta.
   static constexpr int kOwnBytes = kTile * (kSK + kSV) * static_cast<int>(sizeof(T));
-  static constexpr int kStatBytes = 2 * kTile * static_cast<int>(sizeof(float));
-  static constexpr int kStageBytes = kOwnBytes + kStatBytes;
-  // Two stages, unless that keeps a second block off the SM and one stage
-  // does not (f32 at dk + dv = 160: 130 KB against 87 KB). Two resident
-  // blocks overlap one's loads with the other's products as a second stage
-  // would, and give the SM 8 warps instead of 4.
+  // Rows of a ring stage: kTile, or 32 where one stage of kTile rows does not
+  // fit beside the block's own rows (f32 at 256).
+  static constexpr int kRows =
+      2 * kOwnBytes + 2 * kTile * static_cast<int>(sizeof(float)) <= kMaxSmemBytes ? kTile : 32;
+  static constexpr int kStatBytes = 2 * kRows * static_cast<int>(sizeof(float));
+  static constexpr int kTileBytes = kRows * (kSK + kSV) * static_cast<int>(sizeof(T));
+  static constexpr int kStageBytes = kTileBytes + kStatBytes;
+  // Two stages, unless that does not fit, or keeps a second block off the SM
+  // where one stage does not (f32 at dk + dv = 160: 130 KB against 87 KB).
+  // Two resident blocks overlap one's loads with the other's products as a
+  // second stage would, and give the SM 8 warps instead of 4.
   static constexpr int kStages =
-      kOwnBytes + 2 * kStageBytes > kTwoBlockBytes && kOwnBytes + kStageBytes <= kTwoBlockBytes
+      kOwnBytes + 2 * kStageBytes > kMaxSmemBytes ||
+              (kOwnBytes + 2 * kStageBytes > kTwoBlockBytes &&
+               kOwnBytes + kStageBytes <= kTwoBlockBytes)
           ? 1
           : 2;
   static constexpr int kBytes = kOwnBytes + kStages * kStageBytes;
+  static_assert(kBytes <= kMaxSmemBytes, "the layout does not fit in shared memory");
 };
 
 // delta[row] = sum_c dO[row, c] * O[row, c] in f32; one warp per row.
@@ -108,32 +130,33 @@ __device__ __noinline__ void dkdv_block(unsigned char* smem, int tile, const T* 
                                            const float* delta, T* dk_out, T* dv_out, int lq,
                                            int lkv, int dk, int dv, float scale, bool vec) {
   using L = BwdLayout<T, DK, DV>;
-  constexpr int SK = L::kSK, SV = L::kSV;
+  constexpr int SK = L::kSK, SV = L::kSV, CK = L::kColsK, CV = L::kColsV, R = L::kRows;
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = k_s + kTile * SK;
   unsigned char* ring = smem + L::kOwnBytes;
   auto stage_q = [&](int i) { return reinterpret_cast<T*>(ring + i * L::kStageBytes); };
   auto stage_stats = [&](int i) {
-    return reinterpret_cast<float*>(ring + i * L::kStageBytes + L::kOwnBytes);
+    return reinterpret_cast<float*>(ring + i * L::kStageBytes + L::kTileBytes);
   };
 
   const int warp = threadIdx.x / 32, t = lane_t();
   const int kv0 = tile * kTile;
+  const int ck0 = blockIdx.z * CK, cv0 = blockIdx.z * CV;  // the block's output columns
   const long long bq = static_cast<long long>(blockIdx.x) * lq;
   const long long bkv = static_cast<long long>(blockIdx.x) * lkv;
   const T* q_b = q + bq * dk;
   const T* do_b = d_o + bq * dv;
   const float* lse_b = lse + bq;
   const float* delta_b = delta + bq;
-  const int n_tiles = (lq + kTile - 1) / kTile;
+  const int n_tiles = (lq + R - 1) / R;
 
   auto load_stage = [&](int i, int q0) {
     T* q_t = stage_q(i);
     float* st = stage_stats(i);
-    load_tile<T, DK>(q_t, q_b, q0, lq, dk, vec);
-    load_tile<T, DV>(q_t + kTile * SK, do_b, q0, lq, dv, vec);
-    load_stats(st, lse_b, q0, lq);
-    load_stats(st + kTile, delta_b, q0, lq);
+    load_tile<T, DK, R>(q_t, q_b, q0, lq, dk, vec);
+    load_tile<T, DV, R>(q_t + R * SK, do_b, q0, lq, dv, vec);
+    load_stats<R>(st, lse_b, q0, lq);
+    load_stats<R>(st + R, delta_b, q0, lq);
   };
 
   load_tile<T, DK>(k_s, k + bkv * dk, kv0, lkv, dk, vec);
@@ -142,16 +165,16 @@ __device__ __noinline__ void dkdv_block(unsigned char* smem, int tile, const T* 
   cp_async_commit();
 
   const float c = scale * kLog2e;
-  float dk_acc[DK / 8][4] = {}, dv_acc[DV / 8][4] = {};
-  for (int it = 0; it < n_tiles; ++it) ring_step<L::kStages>(it, n_tiles, load_stage, [&](int slot) {
-    const int q0 = it * kTile;
+  float dk_acc[CK / 8][4] = {}, dv_acc[CV / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) ring_step<L::kStages, R>(it, n_tiles, load_stage, [&](int slot) {
+    const int q0 = it * R;
     const T* q_t = stage_q(slot);
-    const T* do_t = q_t + kTile * SK;
+    const T* do_t = q_t + R * SK;
     const float* lse_t = stage_stats(slot);
-    const float* delta_t = lse_t + kTile;
+    const float* delta_t = lse_t + R;
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // 32 q columns at a time
+    for (int h = 0; h < R / 32; ++h) {  // 32 q columns at a time
       const int qc0 = 32 * h;
       float pt[4][4] = {}, dst[4][4] = {};  // p^T, then dS^T; dP^T first
       mma_abt<DK, SK>(pt, k_s, 16 * warp, q_t, qc0);   // s^T = k q^T
@@ -165,15 +188,15 @@ __device__ __noinline__ void dkdv_block(unsigned char* smem, int tile, const T* 
           pt[n][e] = p;
           dst[n][e] = p * (dst[n][e] - delta_t[col]) * scale;
         }
-      mma_acc_b<DV, SV, 4, true>(dv_acc, pt, do_t, qc0);  // dV += p^T dO
-      mma_acc_b<DK, SK, 4, true>(dk_acc, dst, q_t, qc0);  // dK += dS^T q
+      mma_acc_b<CV, SV, 4, true>(dv_acc, pt, do_t + cv0, qc0);  // dV += p^T dO
+      mma_acc_b<CK, SK, 4, true>(dk_acc, dst, q_t + ck0, qc0);  // dK += dS^T q
     }
   });
 
   const float one[2] = {1.f, 1.f};
   const int row0 = kv0 + 16 * warp;
-  store_rows<T, DK>(dk_out + bkv * dk, dk_acc, row0, lkv, dk, one);
-  store_rows<T, DV>(dv_out + bkv * dv, dv_acc, row0, lkv, dv, one);
+  store_rows<T, CK>(dk_out + bkv * dk + ck0, dk_acc, row0, lkv, dk - ck0, one, dk);
+  store_rows<T, CV>(dv_out + bkv * dv + cv0, dv_acc, row0, lkv, dv - cv0, one, dv);
 }
 
 // dQ of q rows 64 * tile .. 64 * tile + 63 of batch entry blockIdx.x.
@@ -183,7 +206,7 @@ __device__ __noinline__ void dq_block(unsigned char* smem, int tile, const T* q,
                                          const float* delta, T* dq_out, int lq, int lkv, int dk,
                                          int dv, float scale, bool vec) {
   using L = BwdLayout<T, DK, DV>;
-  constexpr int SK = L::kSK, SV = L::kSV;
+  constexpr int SK = L::kSK, SV = L::kSV, CK = L::kColsK, R = L::kRows;
   T* q_s = reinterpret_cast<T*>(smem);
   T* do_s = q_s + kTile * SK;
   unsigned char* ring = smem + L::kOwnBytes;
@@ -191,16 +214,17 @@ __device__ __noinline__ void dq_block(unsigned char* smem, int tile, const T* q,
 
   const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
   const int q0 = tile * kTile;
+  const int ck0 = blockIdx.z * CK;  // the block's dQ columns
   const long long bq = static_cast<long long>(blockIdx.x) * lq;
   const long long bkv = static_cast<long long>(blockIdx.x) * lkv;
   const T* k_b = k + bkv * dk;
   const T* v_b = v + bkv * dv;
-  const int n_tiles = (lkv + kTile - 1) / kTile;
+  const int n_tiles = (lkv + R - 1) / R;
 
   auto load_stage = [&](int i, int kv0) {
     T* k_t = stage_k(i);
-    load_tile<T, DK>(k_t, k_b, kv0, lkv, dk, vec);
-    load_tile<T, DV>(k_t + kTile * SK, v_b, kv0, lkv, dv, vec);
+    load_tile<T, DK, R>(k_t, k_b, kv0, lkv, dk, vec);
+    load_tile<T, DV, R>(k_t + R * SK, v_b, kv0, lkv, dv, vec);
   };
 
   load_tile<T, DK>(q_s, q + bq * dk, q0, lq, dk, vec);
@@ -221,14 +245,14 @@ __device__ __noinline__ void dq_block(unsigned char* smem, int tile, const T* q,
   }
 
   const float c = scale * kLog2e;
-  float dq_acc[DK / 8][4] = {};
-  for (int it = 0; it < n_tiles; ++it) ring_step<L::kStages>(it, n_tiles, load_stage, [&](int slot) {
-    const int kv0 = it * kTile;
+  float dq_acc[CK / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) ring_step<L::kStages, R>(it, n_tiles, load_stage, [&](int slot) {
+    const int kv0 = it * R;
     const T* k_t = stage_k(slot);
-    const T* v_t = k_t + kTile * SK;
+    const T* v_t = k_t + R * SK;
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // 32 kv columns at a time
+    for (int h = 0; h < R / 32; ++h) {  // 32 kv columns at a time
       const int kc0 = 32 * h;
       float p[4][4] = {}, ds[4][4] = {};  // p, then dS; dP first
       mma_abt<DK, SK>(p, q_s, 16 * warp, k_t, kc0);    // s = q k^T
@@ -242,12 +266,12 @@ __device__ __noinline__ void dq_block(unsigned char* smem, int tile, const T* q,
           const float pe = ok ? exp2f(p[n][e] * c - lse_r[r]) : 0.f;
           ds[n][e] = pe * (ds[n][e] - delta_r[r]) * scale;
         }
-      mma_acc_b<DK, SK, 4, true>(dq_acc, ds, k_t, kc0);  // dQ += dS k
+      mma_acc_b<CK, SK, 4, true>(dq_acc, ds, k_t + ck0, kc0);  // dQ += dS k
     }
   });
 
   const float one[2] = {1.f, 1.f};
-  store_rows<T, DK>(dq_out + bq * dk, dq_acc, row0, lq, dk, one);
+  store_rows<T, CK>(dq_out + bq * dk + ck0, dq_acc, row0, lq, dk - ck0, one, dk);
 }
 
 // The dK/dV blocks (blockIdx.y < n_kv_tiles, each walking all of Lq) and the
@@ -283,7 +307,8 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* d_o, const float
   static bool smem_set[kMaxDevices] = {};
   const cudaError_t err = allow_smem(bwd_kernel<T, DK, DV>, kBytes, device, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch, (lkv + kTile - 1) / kTile + (lq + kTile - 1) / kTile);
+  const dim3 grid(batch, (lkv + kTile - 1) / kTile + (lq + kTile - 1) / kTile,
+                  BwdLayout<T, DK, DV>::kColTiles);
   bwd_kernel<T, DK, DV><<<grid, kThreads, kBytes, s>>>(q, k, v, d_o, lse, delta, dq, dk_out,
                                                        dv_out, lq, lkv, dk, dv, scale, vec);
   return cudaGetLastError();
@@ -307,7 +332,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(d_o) &&
                    dk * sizeof(T) % 16 == 0 && dv * sizeof(T) % 16 == 0;
-  const int pk = padded_width(dk), pv = padded_width(dv);
+  int pk, pv;
+  padded_pair(dk, dv, pk, pv);
 #define IEAGAN_CASE(DK, DV)                                                                  \
   if (pk == DK && pv == DV)                                                                  \
     return launch<T, DK, DV>(q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq),            \
@@ -315,7 +341,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                              dk, dv, scale, vec, device, s);
   IEAGAN_ATTENTION_WIDTHS(IEAGAN_CASE)
 #undef IEAGAN_CASE
-  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 128 only
+  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 256 only
 }
 
 }  // namespace

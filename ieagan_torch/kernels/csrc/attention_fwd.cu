@@ -2,7 +2,7 @@
 // and the f32 row statistic lse = m + log(l), per batch entry b:
 //   q (B, Lq, dk), k (B, Lkv, dk), v (B, Lkv, dv) -> o (B, Lq, dv), lse (B, Lq)
 // Inputs are f32 or bf16 (o takes their type); softmax statistics and all
-// accumulation are f32. dk, dv <= 128, any Lq, Lkv. Row-major, contiguous.
+// accumulation are f32. dk, dv <= 256, any Lq, Lkv. Row-major, contiguous.
 //
 // Replaces ieagan_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by
 // _fwd), which keeps the whole kv (padded to 8) in VMEM and does one pass per
@@ -42,6 +42,16 @@
 // Head widths are padded to 32, 64 or 128 (zero columns change no product) and
 // each padded pair has its own instance (IEAGAN_ATTENTION_WIDTHS).
 //
+// Width 256 (D's proxy RRM, 4 heads of 256 at L = 40 or 80: ~10 MFLOP, bound
+// by the launch): one (256, 256) instance. A 64 x 256 f32 accumulator would
+// take 128 registers a thread on 4 warps before any score, so o is computed
+// in two column tiles of 128, one per blockIdx.z, each recomputing the
+// scores over all of dk; only the tile's v columns are loaded. In f32 the q
+// tile, a k tile and a v column tile (166 KB) leave no room for a second ring
+// stage under the 227 KB a block may take, so that instance streams k and v
+// through one stage (FwdLayout); bf16 keeps two. q's fragments stay in
+// shared memory at dk 256 in bf16 (64 registers otherwise).
+//
 // Rounding against the Pallas kernel: in f32 both sum f32-accurate products in
 // different orders. In bf16 the Pallas kernel widens q, k, v to f32 and keeps
 // p in f32 (flash_attention.py:63-75); here q k^T is a bf16 product with f32
@@ -56,10 +66,13 @@ using namespace ieagan;
 
 template <typename T, int DK, int DV>
 struct FwdLayout {
+  static constexpr int kCols = col_tile(DV);  // o's columns per block
   static constexpr int kSK = row_stride<T>(DK);
-  static constexpr int kSV = row_stride<T>(DV);
+  static constexpr int kSV = row_stride<T>(kCols);
   static constexpr int kQ = kTile * kSK;              // q tile, elements
-  static constexpr int kStage = kTile * (kSK + kSV);  // k tile then v tile
+  static constexpr int kStage = kTile * (kSK + kSV);  // k tile then v's column tile
+  static constexpr int kStages =
+      (kQ + 2 * kStage) * static_cast<int>(sizeof(T)) <= kMaxSmemBytes ? 2 : 1;
   static constexpr int kBytes = (kQ + kStages * kStage) * static_cast<int>(sizeof(T));
 };
 
@@ -71,50 +84,51 @@ __global__ void __launch_bounds__(kThreads)
                          float scale, bool vec) {
   using L = FwdLayout<T, DK, DV>;
   constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int SK = L::kSK, SV = L::kSV;
+  constexpr int SK = L::kSK, SV = L::kSV, DC = L::kCols;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* ring = q_s + L::kQ;
 
   const int warp = threadIdx.x / 32, g = lane_g(), t = lane_t();
   const int q0 = blockIdx.y * kTile;
+  const int c0 = blockIdx.z * DC;  // the block's first column of v and o
   const long long bq = static_cast<long long>(blockIdx.x) * lq;
   const long long bkv = static_cast<long long>(blockIdx.x) * lkv;
   const T* k_b = k + bkv * dk;
-  const T* v_b = v + bkv * dv;
+  const T* v_b = v + bkv * dv + c0;
   const int n_tiles = (lkv + kTile - 1) / kTile;
 
   load_tile<T, DK>(q_s, q + bq * dk, q0, lq, dk, vec);
   cp_async_commit();
   load_tile<T, DK>(ring, k_b, 0, lkv, dk, vec);
-  load_tile<T, DV>(ring + kTile * SK, v_b, 0, lkv, dv, vec);
+  load_tile<T, DC>(ring + kTile * SK, v_b, 0, lkv, dv - c0, vec, dv);
   cp_async_commit();
   cp_async_wait<1>();  // q has landed; kv tile 0 may be in flight
   __syncthreads();
 
   // q's A operand for the warp's 16 rows, once.
-  constexpr bool kQRegs = !kF32 || DK <= 32;
+  constexpr bool kQRegs = kF32 ? DK <= 32 : DK <= 128;
   constexpr int kQSteps = kF32 ? DK / 8 : DK / 16;
   SplitA qa_f32[kF32 && kQRegs ? kQSteps : 1];
-  uint32_t qa_bf16[kF32 ? 1 : kQSteps][4];
+  uint32_t qa_bf16[!kF32 && kQRegs ? kQSteps : 1][4];
   if constexpr (kF32 && kQRegs) {
 #pragma unroll
     for (int kk = 0; kk < kQSteps; ++kk) qa_f32[kk] = a_rows_f32<SK>(q_s, 16 * warp, 8 * kk);
-  } else if constexpr (!kF32) {
+  } else if constexpr (!kF32 && kQRegs) {
 #pragma unroll
     for (int kk = 0; kk < kQSteps; ++kk) a_rows_bf16<SK>(qa_bf16[kk], q_s, 16 * warp, 16 * kk);
   }
 
   const float c = scale * kLog2e;  // scores in the log2 domain
-  float acc[DV / 8][4] = {};
+  float acc[DC / 8][4] = {};
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 
   auto load_kv = [&](int slot, int kv0) {
     T* stage = ring + slot * L::kStage;
     load_tile<T, DK>(stage, k_b, kv0, lkv, dk, vec);
-    load_tile<T, DV>(stage + kTile * SK, v_b, kv0, lkv, dv, vec);
+    load_tile<T, DC>(stage + kTile * SK, v_b, kv0, lkv, dv - c0, vec, dv);
   };
-  for (int it = 0; it < n_tiles; ++it) ring_step<kStages>(it, n_tiles, load_kv, [&](int slot) {
+  for (int it = 0; it < n_tiles; ++it) ring_step<L::kStages>(it, n_tiles, load_kv, [&](int slot) {
     const int kv0 = it * kTile;
     const T* k_t = ring + slot * L::kStage;
     const T* v_t = k_t + kTile * SK;
@@ -123,10 +137,10 @@ __global__ void __launch_bounds__(kThreads)
     float s[8][4] = {};
     if constexpr (kF32 && kQRegs)
       mma_abt<DK, SK>(s, qa_f32, k_t, 0);
-    else if constexpr (kF32)
-      mma_abt<DK, SK>(s, q_s, 16 * warp, k_t, 0);
-    else
+    else if constexpr (kQRegs)
       mma_abt<DK, SK>(s, qa_bf16, k_t, 0);
+    else
+      mma_abt<DK, SK>(s, q_s, 16 * warp, k_t, 0);
 
     // Online softmax. Column kv0 is always valid, so the new max is finite
     // and alpha = exp2(-inf) = 0 on the first tile.
@@ -155,14 +169,14 @@ __global__ void __launch_bounds__(kThreads)
         l[e / 2] += s[n][e];
       }
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       acc[n][0] *= alpha[0];
       acc[n][1] *= alpha[0];
       acc[n][2] *= alpha[1];
       acc[n][3] *= alpha[1];
     }
 
-    mma_acc_b<DV, SV>(acc, s, v_t, 0);  // o += p v
+    mma_acc_b<DC, SV>(acc, s, v_t, 0);  // o += p v
   });
 
   float inv_l[2];
@@ -172,8 +186,8 @@ __global__ void __launch_bounds__(kThreads)
     inv_l[r] = 1.f / l[r];
   }
   const int row0 = q0 + 16 * warp;
-  store_rows<T, DV>(o + bq * dv, acc, row0, lq, dv, inv_l);
-  if (t == 0) {
+  store_rows<T, DC>(o + bq * dv + c0, acc, row0, lq, dv - c0, inv_l, dv);
+  if (t == 0 && blockIdx.z == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row0 + g + 8 * r < lq) lse[bq + row0 + g + 8 * r] = m[r] * kLn2 + logf(l[r]);
@@ -189,7 +203,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   const cudaError_t err =
       allow_smem(attention_fwd_kernel<T, DK, DV>, L::kBytes, device, smem_set);
   if (err != cudaSuccess) return err;
-  attention_fwd_kernel<T, DK, DV><<<dim3(batch, (lq + kTile - 1) / kTile), kThreads, L::kBytes, s>>>(
+  const dim3 grid(batch, (lq + kTile - 1) / kTile, DV / L::kCols);
+  attention_fwd_kernel<T, DK, DV><<<grid, kThreads, L::kBytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), lq, lkv, dk, dv, scale, vec);
   return cudaGetLastError();
@@ -200,13 +215,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
                      int lq, int lkv, int dk, int dv, float scale, int device, cudaStream_t s) {
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && dk * sizeof(T) % 16 == 0 &&
                    dv * sizeof(T) % 16 == 0;
-  const int pk = padded_width(dk), pv = padded_width(dv);
+  int pk, pv;
+  padded_pair(dk, dv, pk, pv);
 #define IEAGAN_CASE(DK, DV)                                                              \
   if (pk == DK && pv == DV)                                                              \
     return launch<T, DK, DV>(q, k, v, o, lse, batch, lq, lkv, dk, dv, scale, vec, device, s);
   IEAGAN_ATTENTION_WIDTHS(IEAGAN_CASE)
 #undef IEAGAN_CASE
-  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 128 only
+  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 256 only
 }
 
 }  // namespace

@@ -46,20 +46,39 @@ constexpr int kStages = 2;  // depth of the cp.async ring
 // The most dynamic shared memory a block may take for two blocks to share an
 // SM: 228 KB per SM, less 1 KB that the card reserves per block, halved.
 constexpr int kTwoBlockBytes = (233472 - 2 * 1024) / 2;
-constexpr int kMaxD = 128;
+// The most dynamic shared memory a block may take on the H100: 227 KB.
+constexpr int kMaxSmemBytes = 232448;
+constexpr int kMaxD = 256;
+// The widest accumulator a warp keeps per output: a block of a 256-wide
+// instance computes its output in column tiles of 128, one per blockIdx.z,
+// and recomputes the scores for each.
+constexpr int kMaxCols = 128;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The head widths the kernels are instantiated for: each width is padded up
 // to 32, 64 or 128 (zero fill) and the pair (padded dk, padded dv) picks the
-// instance. Every pair is built, so every dk, dv <= 128 has one.
-#define IEAGAN_ATTENTION_WIDTHS(X) \
-  X(32, 32) X(32, 64) X(32, 128) X(64, 32) X(64, 64) X(64, 128) X(128, 32) X(128, 64) X(128, 128)
+// instance; every such pair is built, so every dk, dv <= 128 has one. A pair
+// with a width past 128 pads both to 256 and takes the one (256, 256)
+// instance (D's proxy RRM: 4 heads of 256).
+#define IEAGAN_ATTENTION_WIDTHS(X)                                                          \
+  X(32, 32) X(32, 64) X(32, 128) X(64, 32) X(64, 64) X(64, 128) X(128, 32) X(128, 64) X(128, 128) \
+  X(256, 256)
 
 __host__ __device__ constexpr int padded_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
+
+// The padded pair of (dk, dv): both 256 if either is past 128.
+__host__ __device__ inline void padded_pair(int dk, int dv, int& pk, int& pv) {
+  pk = padded_width(dk);
+  pv = padded_width(dv);
+  if (pk > kMaxCols || pv > kMaxCols) pk = pv = kMaxD;
+}
+
+// The output column tile of width d: the width itself up to 128, else 128.
+__host__ __device__ constexpr int col_tile(int d) { return d > kMaxCols ? kMaxCols : d; }
 
 // Row stride of a shared-memory tile, in elements. f32: D + 4, so that the
 // scalar fragment reads -- (row g, col t) and (row 2t, col g) -- fall in 32
@@ -114,39 +133,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows r0 .. r0 + kTile - 1 of a row-major (n_rows, width) tensor `src` into
-// the tile `dst` (row stride row_stride<T>(D)); rows at or past n_rows and
-// columns at or past width read as zeros. `vec`: width * sizeof(T) and `src`
-// are 16-byte aligned, so each row goes as 16-byte cp.async copies; else
-// element by element, synchronously (odd widths only).
-template <typename T, int D>
+// Rows r0 .. r0 + ROWS - 1 of a row-major tensor `src` with n_rows rows of
+// `ld` elements (`width` by default) into the tile `dst` (row stride
+// row_stride<T>(D)): columns 0 .. D - 1 of each row, of which the first
+// `width` are read; rows at or past n_rows and columns at or past width read
+// as zeros. A column tile of a wider tensor is `src` offset by its first
+// column, with `width` the columns left from there. `vec`: width *
+// sizeof(T), ld * sizeof(T) and `src` are 16-byte aligned, so each row goes
+// as 16-byte cp.async copies; else element by element, synchronously (odd
+// widths only).
+template <typename T, int D, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int n_rows, int width,
-                                          bool vec) {
+                                          bool vec, int ld = 0) {
   constexpr int S = row_stride<T>(D);
+  if (ld == 0) ld = width;
   if (vec) {
     constexpr int kChunk = 16 / sizeof(T);  // elements per copy
     constexpr int kChunks = D / kChunk;     // copies per row
 #pragma unroll 4
-    for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * kChunk;
       const bool ok = r0 + r < n_rows && c < width;
-      cp_async16(dst + r * S + c, ok ? src + static_cast<long long>(r0 + r) * width + c : src,
-                 ok);
+      cp_async16(dst + r * S + c, ok ? src + static_cast<long long>(r0 + r) * ld + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
       const int r = i / D, c = i % D;
       dst[r * S + c] = r0 + r < n_rows && c < width
-                           ? src[static_cast<long long>(r0 + r) * width + c]
+                           ? src[static_cast<long long>(r0 + r) * ld + c]
                            : from_f32<T>(0.f);
     }
   }
 }
 
-// kTile f32 row statistics (lse or delta) from row r0 on, zeros past n_rows.
+// ROWS f32 row statistics (lse or delta) from row r0 on, zeros past n_rows.
+template <int ROWS = kTile>
 __device__ __forceinline__ void load_stats(float* dst, const float* src, int r0, int n_rows) {
   const int i = threadIdx.x;
-  if (i < kTile) {
+  if (i < ROWS) {
     const bool ok = r0 + i < n_rows;
     cp_async4(dst + i, ok ? src + r0 + i : src, ok);
   }
@@ -488,17 +512,20 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Stores a warp's 16 x D accumulator (rows row0 + g, row0 + g + 8 of a
-// row-major (n_rows, width) tensor) in T, skipping rows >= n_rows and
-// columns >= width; multiplies row r by mul[r].
+// row-major tensor of rows of `ld` elements, `width` by default) in T,
+// skipping rows >= n_rows and columns >= width; multiplies row r by mul[r].
+// A column tile of a wider tensor is `dst` offset by its first column.
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4], int row0,
-                                           int n_rows, int width, const float (&mul)[2]) {
+                                           int n_rows, int width, const float (&mul)[2],
+                                           int ld = 0) {
   const int g = lane_g(), t = lane_t();
+  if (ld == 0) ld = width;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= n_rows) continue;
-    T* out = dst + static_cast<long long>(row) * width;
+    T* out = dst + static_cast<long long>(row) * ld;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = 8 * n + 2 * t;
@@ -508,14 +535,15 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4],
   }
 }
 
-// One tile's step of a loop over a cp.async ring of kRing stages: with two,
-// the next tile's copies are issued before this one is waited for; with one,
-// after this one has been consumed. `load(slot, row0)` issues the copies of
-// the tile at row0; `compute(slot)` consumes the tile in `slot`.
-template <int kRing, typename Load, typename Compute>
+// One tile's step of a loop over a cp.async ring of kRing stages of kRows
+// rows: with two, the next tile's copies are issued before this one is
+// waited for; with one, after this one has been consumed. `load(slot, row0)`
+// issues the copies of the tile at row0; `compute(slot)` consumes the tile
+// in `slot`.
+template <int kRing, int kRows = kTile, typename Load, typename Compute>
 __device__ __forceinline__ void ring_step(int it, int n_tiles, Load load, Compute compute) {
   if constexpr (kRing > 1) {
-    if (it + 1 < n_tiles) load((it + 1) % kRing, (it + 1) * kTile);
+    if (it + 1 < n_tiles) load((it + 1) % kRing, (it + 1) * kRows);
     cp_async_commit();
     cp_async_wait<1>();
   } else {
@@ -526,7 +554,7 @@ __device__ __forceinline__ void ring_step(int it, int n_tiles, Load load, Comput
   __syncthreads();  // the slot is refilled next
   if constexpr (kRing == 1) {
     if (it + 1 < n_tiles) {
-      load(0, (it + 1) * kTile);
+      load(0, (it + 1) * kRows);
       cp_async_commit();
     }
   }

@@ -31,12 +31,13 @@ import torch
 
 from ieagan_torch.kernels import build
 
-MAX_HEAD_DIM = 128  # the kernels' register tiles hold dk, dv <= 128
+MAX_HEAD_DIM = 256
 # The kernels pad each head width up to one of PADDED_WIDTHS (zero columns
-# change no product); every (padded dk, padded dv) pair has an instance of its
-# own (``IEAGAN_ATTENTION_WIDTHS`` in ``csrc/mma_tile.cuh``), so any
-# dk, dv <= 128 runs.
-PADDED_WIDTHS = (32, 64, 128)
+# change no product). Every pair of padded widths up to 128 has an instance of
+# its own (``IEAGAN_ATTENTION_WIDTHS`` in ``csrc/mma_tile.cuh``); a pair with a
+# width past 128 pads both widths to 256 and takes the one (256, 256)
+# instance (D's proxy RRM). So any dk, dv <= 256 runs.
+PADDED_WIDTHS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: ctypes.CDLL | None = None
 _LIB_BWD: ctypes.CDLL | None = None
@@ -109,6 +110,13 @@ def padded_width(d: int) -> int:
     raise ValueError(f"the attention kernel takes dk, dv <= {MAX_HEAD_DIM}; got {d}")
 
 
+def padded_pair(dk: int, dv: int) -> tuple[int, int]:
+    """The kernel instance ``(padded dk, padded dv)`` that a pair of head
+    widths runs in: both 256 if either is past 128."""
+    pair = padded_width(dk), padded_width(dv)
+    return (MAX_HEAD_DIM, MAX_HEAD_DIM) if max(pair) > 128 else pair
+
+
 def _check(q, k, v):
     if not (q.ndim == k.ndim == v.ndim == 3):
         raise ValueError(f"attention_fwd takes 3-D q, k, v; got {q.shape}, "
@@ -127,7 +135,7 @@ def _check(q, k, v):
 
 
 def _check_kernel_inputs(*tensors):
-    """What the kernels take: CUDA, f32 or bf16, head widths <= 128,
+    """What the kernels take: CUDA, f32 or bf16, head widths <= 256,
     contiguous."""
     q = tensors[0]
     if q.device.type != "cuda":
@@ -145,8 +153,8 @@ def _check_kernel_inputs(*tensors):
 def attention_fwd(q, k, v, scale: float):
     """B1 forward: ``(o (B, Lq, dv) in q's type, lse (B, Lq) f32)``.
 
-    CUDA tensors go to the kernel, which takes f32 or bf16, ``dk, dv <= 128``
-    (each padded to 32, 64 or 128) and contiguous tensors, and raises on
+    CUDA tensors go to the kernel, which takes f32 or bf16, ``dk, dv <= 256``
+    (padded as ``padded_pair`` says) and contiguous tensors, and raises on
     anything else. CPU tensors go to ``attention_fwd_plain``. ``attention_fwd.launches`` counts kernel
     launches. It raises when grad mode is on and an input requires grad:
     the kernel's output carries no gradient, so differentiate through
@@ -184,7 +192,7 @@ def attention_bwd(q, k, v, o, lse, do, scale: float):
     the output gradient ``do (B, Lq, dv)``.
 
     CUDA tensors go to the kernel, which takes what B1 takes (f32 or bf16,
-    ``dk, dv <= 128``, contiguous) and raises on anything else. CPU tensors go
+    ``dk, dv <= 256``, contiguous) and raises on anything else. CPU tensors go
     to ``attention_bwd_plain``. ``attention_bwd.launches`` counts kernel
     launches (one per call: two CUDA kernels back to back, the delta pass
     and the dK/dV and dQ pass)."""
@@ -226,7 +234,8 @@ class FlashAttention(torch.autograd.Function):
     """Differentiable fused attention over 3-D q, k, v: B1 forward, B2
     backward (the twin of the JAX package's ``_flash_attention_3d`` custom
     VJP). Both run their kernels on CUDA tensors and their plain versions on
-    CPU tensors."""
+    CPU tensors. Once differentiable: a backward with ``create_graph=True``
+    raises, since B2's output carries no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
@@ -237,6 +246,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():
+            raise RuntimeError("FlashAttention's backward (B2) is not differentiable: "
+                               "create_graph=True cannot pass through fused attention; "
+                               "use the plain attention for higher-order gradients")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
         return dq, dk, dv, None

@@ -26,11 +26,13 @@ from ieagan_torch.kernels.flash_attention import FlashAttention
 from ieagan_torch.ops.attention import dot_softmax_attention
 
 # (name, B, Lq, Lkv, dk, dv, scale): the model's sites at flagship widths
-# (G's and D's relational reasoning, D's image attention at 32x96), and the
-# JAX self-check's image-attention shape (D_ch = 16: dk 16, dv 64).
+# (G's and D's relational reasoning, D's proxy RRM with 4 heads of 256, D's
+# image attention at 32x96, which PEGAN's G attention shares), and the JAX
+# self-check's image-attention shape (D_ch = 16: dk 16, dv 64).
 CASES = [
     ("rr_g_40x40", 8, 40, 40, 64, 64, 0.125),
     ("rr_d_40x40", 4, 40, 40, 128, 128, 128 ** -0.5),
+    ("rr_dproxy_80x80", 4, 80, 80, 256, 256, 256 ** -0.5),
     ("d_sa_3072x768", 2, 3072, 768, 32, 128, 1.0),
     ("dattn_3072x768", 2, 3072, 768, 16, 64, 1.0),
 ]

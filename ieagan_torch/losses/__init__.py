@@ -1,8 +1,15 @@
-"""Losses of the train step (twin of ``ieagan_tpu/losses/__init__.py``;
-reference: loss.py:8-132): hinge, conditional contrastive (2C),
-intra-event-aware KL, hypersphere uniformity and the l2 consistency loss.
+"""Losses (twin of ``ieagan_tpu/losses/__init__.py``; reference:
+loss.py:8-293): hinge, conditional contrastive (2C and 2C+), the temperature
+schedule, intra-event-aware KL, hypersphere uniformity, the l2 consistency
+loss, and the gradient penalties no train loop calls (WGAN-GP, DRAGAN, the
+latent gradient norm).
 
 Pure functions over scores and embeddings; every reduction runs in float32.
+The penalties take D (and G) as callables and their random draws as inputs.
+They are first-order: one ``torch.autograd.grad`` without ``create_graph``,
+as the JAX package computes them as values. Through a D with fused attention
+that is all they can be, since ``FlashAttention``'s backward (B2) is not
+itself differentiable and refuses ``create_graph=True``.
 """
 
 from __future__ import annotations
@@ -87,3 +94,76 @@ def conditional_contrastive_loss(inst_embed, proxy, negative_mask, labels,
         numerator = numerator + torch.sum(instance_zone * mask, dim=1)
     denominator = inst2proxy + torch.sum(instance_zone, dim=1)
     return -torch.mean(torch.log(temperature * (numerator / denominator)))
+
+
+def conditional_contrastive_loss_plus(inst_embed, proxy, negative_mask, labels,
+                                      temperature: float, margin: float):
+    """2C+ conditional contrastive loss: proxy-to-instance and
+    instance-to-instance terms (reference: loss.py:135-190)."""
+    inst, prox = _unit_rows(inst_embed), _unit_rows(proxy)
+    p2i = torch.exp((prox @ inst.T - margin) / temperature)
+    i2i = torch.exp((inst @ inst.T - margin) / temperature)
+    mask = negative_mask[labels].float()  # (B, B)
+    p2i_term = torch.sum(p2i * mask, dim=1) / torch.sum(p2i, dim=1)
+    i2i_term = torch.sum(i2i * mask, dim=1) / torch.sum(i2i, dim=1)
+    return (-torch.mean(torch.log(temperature * p2i_term))
+            - torch.mean(torch.log(temperature * i2i_term)))
+
+
+def set_temperature(conditional_strategy: str, tempering_type: str, start_temperature: float,
+                    end_temperature: float, step_count: int, tempering_step: int,
+                    total_step: int):
+    """The contrastive temperature at ``step_count`` (reference: loss.py:47-76):
+    ``"no"`` outside Contra, linear in the step (``continuous``), in
+    ``tempering_step`` stairs (``discrete``), else ``start_temperature``."""
+    if conditional_strategy != "Contra":
+        return "no"
+    if tempering_type == "continuous":
+        return start_temperature + step_count * (end_temperature - start_temperature) / total_step
+    if tempering_type == "discrete":
+        interval = total_step // (tempering_step + 1)
+        return (start_temperature + (step_count // interval)
+                * (end_temperature - start_temperature) / tempering_step)
+    return start_temperature
+
+
+def _score(outs, conditional_strategy: str):
+    return outs[2] if conditional_strategy == "Contra" else outs
+
+
+def _penalty(d_apply, x, labels, conditional_strategy: str):
+    """mean((||d score / d x|| - 1)^2) per sample, first order."""
+    x = x.detach().requires_grad_()
+    with torch.enable_grad():
+        score = torch.sum(_score(d_apply(x, labels), conditional_strategy).float())
+        (grads,) = torch.autograd.grad(score, x)
+    gnorm = torch.sqrt(torch.sum(torch.square(grads.float().reshape(x.shape[0], -1)), dim=1)
+                       + 1e-12)
+    return torch.mean(torch.square(gnorm - 1.0))
+
+
+def gradient_penalty(d_apply, real, fake, labels, alpha, conditional_strategy: str = "Contra"):
+    """WGAN-GP penalty on ``alpha * real + (1 - alpha) * fake`` (reference:
+    loss.py:193-229). ``d_apply(x, labels)`` is D; ``alpha`` (B, 1, 1, 1)
+    uniform in [0, 1) is the caller's draw."""
+    return _penalty(d_apply, alpha * real + (1 - alpha) * fake, labels, conditional_strategy)
+
+
+def gradient_penalty_dragan(d_apply, real, labels, alpha, noise,
+                            conditional_strategy: str = "Contra"):
+    """DRAGAN penalty on ``real + alpha * 0.5 * std(real) * noise`` with the
+    unbiased std (reference: loss.py:232-265). ``alpha`` (B, 1, 1, 1) and
+    ``noise`` (real's shape) are the caller's uniform [0, 1) draws."""
+    differences = 0.5 * torch.std(real, correction=1) * noise
+    return _penalty(d_apply, real + alpha * differences, labels, conditional_strategy)
+
+
+def latent_gradient_norm(g_apply, d_apply, z, labels, conditional_strategy: str = "Contra"):
+    """The gradient of sum(D(G(z))) with respect to z and its squared norm
+    per sample, ``(grads, norm (B, 1))`` (reference: loss.py:268-293)."""
+    z = z.detach().requires_grad_()
+    with torch.enable_grad():
+        score = torch.sum(_score(d_apply(g_apply(z, labels), labels),
+                                 conditional_strategy).float())
+        (grads,) = torch.autograd.grad(score, z)
+    return grads, torch.sum(torch.square(grads), dim=1)[:, None]

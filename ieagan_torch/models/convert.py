@@ -31,6 +31,22 @@ saves (``ieagan_tpu/train/optim.py::make_optimizer``, read from
 ``"0"`` is the moments' state (``ScaleByAdamState`` and its twins) with
 parameter trees in the flax layout, ``"1"`` the schedule wrapper's
 ``ScaleByScheduleState``, ``{}`` the clip's empty state. Counts are int32.
+
+``generator_state_from_torch`` and ``generator_state_to_torch`` map the
+port's Generator onto the reference PyTorch layout (reference:
+model.py:139-487), as ``ieagan_tpu/models/convert.py:31-133`` and
+``:191-263`` do for the JAX package::
+
+  blocks.<k>.0.<rest>        <-> blocks_<k // G_depth>_<k % G_depth>.<rest>
+  blocks.<k>.1.<rest>        <-> attn_<k // G_depth>.<rest> (k the stage's last block)
+  output_layer.0 / .2        <-> output_bn / output_conv
+  RR_G.layers.<i>            <-> RR_G.layers_<i>
+  ...linear_net.0 / .3       <-> ...linear1 / linear2 (the RRM's feed-forward)
+  <sn module>.u<i> (1, out)  <-> <sn module>.u[i]; sv<i> (1,) <-> sv[i]
+  stored_mean / stored_var   <-> mean / var
+
+Weights keep their names and layouts. The reference has no standing-stats
+counters: ``accumulation_counter`` is left out of the export and read as 0.
 """
 
 from __future__ import annotations
@@ -250,3 +266,116 @@ def optimizer_state_from_flax(opt, model: torch.nn.Module, tree: Mapping):
                 opt.state[p][m].copy_(torch.from_numpy(np.asarray(arrays[m][by_id[id(p)]])))
     opt.count = int(inner["count"])
     opt.sched_count = int(tree["1"]["count"])
+
+
+def _torch_module_path(parts: list[str], g_depth: int) -> list[str]:
+    """A reference-layout module path as the port's."""
+    if parts[0] == "blocks":
+        k, j = int(parts[1]), int(parts[2])
+        name = f"blocks_{k // g_depth}_{k % g_depth}" if j == 0 else f"attn_{k // g_depth}"
+        return [name] + parts[3:]
+    if parts[0] == "output_layer":
+        return [{"0": "output_bn", "2": "output_conv"}[parts[1]]] + parts[2:]
+    out = []
+    rest = list(parts)
+    while rest:
+        p = rest.pop(0)
+        if p == "layers":
+            out.append(f"layers_{rest.pop(0)}")
+        elif p == "linear_net":
+            out.append({"0": "linear1", "3": "linear2"}[rest.pop(0)])
+        else:
+            out.append(p)
+    return out
+
+
+def _port_module_path(parts: list[str], g_depth: int) -> list[str]:
+    """A module path of the port's Generator in the reference layout."""
+    head = parts[0]
+    if head.startswith("blocks_"):
+        stage, index = map(int, head.split("_")[1:])
+        return ["blocks", str(stage * g_depth + index), "0"] + parts[1:]
+    if head.startswith("attn_"):
+        return ["blocks", str(int(head.split("_")[1]) * g_depth + g_depth - 1), "1"] + parts[1:]
+    if head in ("output_bn", "output_conv"):
+        return ["output_layer", "0" if head == "output_bn" else "2"] + parts[1:]
+    out = []
+    for prev, p in zip([""] + parts, parts):
+        if p.startswith("layers_"):
+            out += ["layers", p.split("_")[1]]
+        elif prev.startswith("layers_") and p in ("linear1", "linear2"):  # the RRM's MLP
+            out += ["linear_net", "0" if p == "linear1" else "3"]
+        else:
+            out.append(p)
+    return out
+
+
+def generator_state_from_torch(state_dict: Mapping, g_depth: int = 2,
+                               template: Mapping | None = None) -> dict:
+    """A state dict (numpy, the port's names) for the port's Generator from a
+    reference-layout PyTorch Generator state dict (tensors or arrays).
+
+    Raises ``KeyError`` on a key it cannot map. With ``template`` (the port's
+    ``state_dict()``), a template key missing from the result is an error too,
+    except the standing-stats counters, which the reference does not keep
+    and which are read as 0; so is a converted key the template does not
+    have, and a shape that differs."""
+    out: dict[str, np.ndarray] = {}
+    svs: dict[tuple, dict[int, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        arr = np.asarray(value.detach().cpu().float().numpy() if hasattr(value, "detach")
+                         else value, np.float32)
+        *mod, leaf = key.split(".")
+        path = ".".join(_torch_module_path(mod, g_depth)) if mod else ""
+        for prefix, name in (("u", "u"), ("sv", "sv")):
+            if leaf.startswith(prefix) and leaf[len(prefix):].isdigit():
+                svs.setdefault((path, name), {})[int(leaf[len(prefix):])] = arr.reshape(-1)
+                break
+        else:
+            leaf = {"stored_mean": "mean", "stored_var": "var"}.get(leaf, leaf)
+            if leaf not in ("weight", "bias", "gain", "gamma", "mean", "var",
+                            "accumulation_counter"):
+                raise KeyError(f"reference key {key} has no counterpart in the port")
+            out[f"{path}.{leaf}" if path else leaf] = arr
+    for (path, name), parts in svs.items():
+        stacked = np.stack([parts[i] for i in sorted(parts)])
+        out[f"{path}.{name}"] = stacked if name == "u" else stacked.reshape(-1)
+    out = {k: np.array(v, np.float32, order="C") for k, v in out.items()}
+    if template is not None:
+        for name, value in template.items():
+            if name.endswith("accumulation_counter") and name not in out:
+                out[name] = np.zeros(tuple(value.shape), np.float32)
+        missing = sorted(set(template) - set(out))
+        unused = sorted(set(out) - set(template))
+        if missing or unused:
+            raise KeyError(f"state dict does not fit the port's Generator: missing "
+                           f"{missing[:8]} ({len(missing)}), unused {unused[:8]} ({len(unused)})")
+        for name in out:
+            want = tuple(template[name].shape)
+            if out[name].shape != want:
+                if out[name].size != int(np.prod(want, dtype=np.int64)):
+                    raise ValueError(f"shape mismatch: {name} {out[name].shape} vs {want}")
+                out[name] = out[name].reshape(want)  # the 0-d gamma, the (1,) counters
+    return out
+
+
+def generator_state_to_torch(model: torch.nn.Module) -> dict:
+    """The reference-layout PyTorch state dict (CPU tensors) of the port's
+    Generator: the inverse of ``generator_state_from_torch``. ``u`` of shape
+    (num_svs, out) becomes ``u0``.. of shape (1, out), ``sv`` ``sv0``.. of
+    shape (1,)."""
+    g_depth = sum(1 for name in model.layer_names if name.startswith("blocks_0_"))
+    out = {}
+    for name, tensor in model.state_dict().items():
+        *mod, leaf = name.split(".")
+        if leaf == "accumulation_counter":
+            continue
+        key = ".".join(_port_module_path(mod, g_depth)) if mod else ""
+        value = tensor.detach().to("cpu", torch.float32).clone()
+        if leaf in ("u", "sv"):
+            for i, row in enumerate(value):
+                out[f"{key}.{leaf}{i}"] = row.reshape(1, -1) if leaf == "u" else row.reshape(1)
+            continue
+        leaf = {"mean": "stored_mean", "var": "stored_var"}.get(leaf, leaf)
+        out[f"{key}.{leaf}" if key else leaf] = value
+    return out

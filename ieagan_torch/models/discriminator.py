@@ -5,14 +5,18 @@ reference: model.py:490-944).
 NCHW inside; the public ``forward`` takes (B, H, W, 1) images as the JAX
 package does. Forward under the Contra strategy (reference: model.py:902-944):
 
-  h = input_conv(x); DBlocks (SA-GAN attention after the D_attn stage)
+  h = input_conv(x); DBlocks (image attention after the D_attn stage)
   h = sum over (H, W) of relu(h)                     (B, 16ch)
   out = linear0(h)               adversarial score, from pre-RRM features
   proxy = embed[y]               spectrally normalized class embedding
   h = RR_D(h per event)          SN linears, 4 heads   [RRM_embed]
   embed = norm(linear1(h))                             (B, hyper)
+  proxy = RR_Dproxy(proxy per event)                   [RRM_prx_D]
+  embed = linear2(act(embed))                          [nonlinear_embed]
   proxy, embed l2-normalized                           [normalize_embed]
   returns (proxy, embed, out)
+
+Under the Proj strategy: out = linear0(h) + <embed[y], h>, returned alone.
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ieagan_torch.models.arch import d_arch
-from ieagan_torch.models.generator import ACTIVATIONS
-from ieagan_torch.ops.attention import SelfAttention2d
+from ieagan_torch.models.generator import ACTIVATIONS, image_attention
 from ieagan_torch.ops.norm import LayerNorm
+from ieagan_torch.ops.prior import prior_features
 from ieagan_torch.ops.rrm import RelationalReasoning
 from ieagan_torch.ops.spectral import SNConv2d, SNEmbedding, SNLinear
 
@@ -75,9 +79,30 @@ class Discriminator(nn.Module):
 
     Submodule names follow the JAX package's variable tree (``input_conv``,
     ``blocks_<stage>_<i>``, ``attn_<stage>``, ``linear0``, ``embed``,
-    ``RR_D``, ``linear1``, ``norm``), so ``models/convert.py`` maps a flax
-    checkpoint onto it name for name. Spectral norm writes ``u`` and ``sv``
-    back on every forward in train mode. Parameters are allocated empty: call
+    ``linear3``/``linear4`` [prior_embed], ``RR_D``, ``linear1``, ``norm``,
+    ``RR_Dproxy`` [RRM_prx_D], ``linear2`` [nonlinear_embed]), so
+    ``models/convert.py`` maps a flax checkpoint onto it name for name.
+    Options, as the JAX package takes them:
+
+      * ``attn_type`` ``sa``, ``cbam`` (SN convs) or ``ila`` at the
+        ``D_attn`` stages; any other type means none;
+      * ``conditional_strategy="Proj"``: the score ``linear0(h) + <embed[y],
+        h>`` with an SN ``embed`` of width 16·ch, returned alone as (B, 1);
+      * ``prior_embed``: the class proxy at half width, ``linear3`` on the
+        prior feature (``ops/prior.py``), ``linear4`` on the two concatenated;
+      * ``RRM_prx_D``: ``RR_Dproxy`` over the class proxies, SN linears,
+        ``n_head_D`` heads of ``hypersphere_dim / n_head_D`` (4 of 256 at the
+        flagship's 1024), feed-forward width ``hypersphere_dim``;
+      * ``nonlinear_embed``: ``embed = linear2(act(embed))``;
+      * ``rrm_full_batch_sequence``: RR_D and RR_Dproxy take the whole input
+        batch as one sequence (the reference's ``h.unsqueeze(0)``), not one
+        sequence per event.
+
+    ``D_param`` is read and ignored: the layers are SN whatever its value,
+    as in the JAX package (``ieagan_tpu/models/discriminator.py:141-145``);
+    so are the ``remat`` keys. ``output_dim`` must be 1 (the JAX step
+    squeezes the score). Spectral norm writes ``u`` and ``sv`` back on every
+    forward in train mode. Parameters are allocated empty: call
     ``reset_parameters(generator)`` or load a state dict.
     """
 
@@ -86,28 +111,29 @@ class Discriminator(nn.Module):
                  num_D_SVs: int = 1, num_D_SV_itrs: int = 1,
                  D_activation: str = "inplace_relu",
                  conditional_strategy: str = "Contra", SN_eps: float = 1e-6,
-                 output_dim: int = 1, D_param: str = "SN", hypersphere_dim: int = 1024,
+                 output_dim: int = 1, hypersphere_dim: int = 1024,
                  nonlinear_embed: bool = False, normalize_embed: bool = True,
                  prior_embed: bool = False, RRM_prx_D: bool = False,
                  RRM_embed: bool = True, n_head_D: int = 4, event_size: int = 40,
                  rrm_full_batch_sequence: bool = False, fused_attention: bool = False):
         super().__init__()
-        unported = {"conditional_strategy": conditional_strategy != "Contra",
-                    "attn_type": attn_type != "sa", "D_param": D_param != "SN",
-                    "prior_embed": prior_embed, "RRM_prx_D": RRM_prx_D,
-                    "nonlinear_embed": nonlinear_embed,
-                    "rrm_full_batch_sequence": rrm_full_batch_sequence,
-                    "output_dim": output_dim != 1}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"discriminator options not ported: {bad}")
+        if conditional_strategy not in ("Contra", "Proj"):
+            raise NotImplementedError(f"conditional_strategy {conditional_strategy!r}")
+        if output_dim != 1:
+            raise NotImplementedError("output_dim != 1: the train step squeezes the score")
         arch = d_arch(D_ch, D_attn)[resolution]
+        self.strategy = conditional_strategy
+        self.n_classes = n_classes
         self.event_size = event_size
         self.RRM_embed = RRM_embed
+        self.RRM_prx_D = RRM_prx_D
+        self.prior_embed = prior_embed
+        self.nonlinear_embed = nonlinear_embed
         self.normalize_embed = normalize_embed
+        self.full_batch_sequence = rrm_full_batch_sequence
         self.activation = ACTIVATIONS[D_activation]
         sn = dict(num_svs=num_D_SVs, num_itrs=num_D_SV_itrs, eps=SN_eps)
-        conv = lambda cin, cout, ksize: SNConv2d(cin, cout, ksize, **sn)
+        conv = lambda cin, cout, ksize, bias=True: SNConv2d(cin, cout, ksize, bias=bias, **sn)
         linear = functools.partial(SNLinear, **sn)
 
         self.input_conv = conv(1, arch["in_channels"][0], 3)
@@ -122,13 +148,21 @@ class Discriminator(nn.Module):
                     downsample=arch["downsample"][index] and d_index == 0))
                 self.layer_names.append(name)
             if arch["attention"][arch["resolution"][index]]:
-                name = f"attn_{index}"
-                self.add_module(name, SelfAttention2d(
-                    arch["out_channels"][index], fused=fused_attention, **sn))
-                self.layer_names.append(name)
+                attn = image_attention(attn_type, arch["out_channels"][index], conv,
+                                       fused_attention)
+                if attn is not None:
+                    self.add_module(f"attn_{index}", attn)
+                    self.layer_names.append(f"attn_{index}")
         top = arch["out_channels"][-1]
         self.linear0 = linear(top, output_dim)
-        self.embed = SNEmbedding(n_classes, hypersphere_dim, **sn)
+        if conditional_strategy == "Proj":
+            self.embed = SNEmbedding(n_classes, top, **sn)
+            return
+        proxy_dim = hypersphere_dim // 2 if prior_embed else hypersphere_dim
+        self.embed = SNEmbedding(n_classes, proxy_dim, **sn)
+        if prior_embed:  # reference: model.py:827-834, 925-928
+            self.linear3 = linear(1, hypersphere_dim // 2)
+            self.linear4 = linear(proxy_dim + hypersphere_dim // 2, hypersphere_dim)
         if RRM_embed:
             # SN linears inside D's RRM (reference: model.py:788-797)
             self.RR_D = RelationalReasoning(
@@ -137,6 +171,12 @@ class Discriminator(nn.Module):
         self.linear1 = linear(top, hypersphere_dim)
         if RRM_embed:
             self.norm = LayerNorm(hypersphere_dim)
+        if RRM_prx_D:
+            self.RR_Dproxy = RelationalReasoning(
+                num_layers=1, input_dim=hypersphere_dim, num_heads=n_head_D,
+                dim_feedforward=hypersphere_dim, linear=linear, fused=fused_attention)
+        if nonlinear_embed:
+            self.linear2 = linear(hypersphere_dim, hypersphere_dim)
 
     @classmethod
     def from_config(cls, config: dict) -> "Discriminator":
@@ -156,24 +196,38 @@ class Discriminator(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    def _sequences(self, rrm, h):
+        """``rrm`` over ``h`` (B, d) as one sequence per event, or as one
+        sequence of the whole batch."""
+        seq = h.shape[0] if self.full_batch_sequence else self.event_size
+        return rrm(h.reshape(-1, seq, h.shape[-1])).reshape(h.shape)
+
     def forward(self, x, y):
         """x: (B, H, W, 1) images in [-1, 1]; y: (B,) int labels, B a
         multiple of event_size. Computes in x's dtype with f32 parameters (the
         train step casts the reals to the compute type, where the JAX package's
         D casts its input). Returns ``(proxy (B, hyper), embed (B, hyper),
-        out (B,))``."""
+        out (B,))`` under Contra, the score (B, 1) under Proj."""
         h = self.input_conv(x.permute(0, 3, 1, 2))
         for name in self.layer_names:
             h = getattr(self, name)(h)
         h = torch.sum(self.activation(h), dim=(2, 3))
+        if self.strategy == "Proj":
+            emb = self.embed(y).to(h.dtype)
+            return self.linear0(h) + torch.sum(emb * h, dim=1, keepdim=True)
         out = self.linear0(h).squeeze(-1)
         proxy = self.embed(y).to(h.dtype)  # in the compute type, as the JAX SNEmbed
+        if self.prior_embed:
+            feat = self.linear3(prior_features(y, self.n_classes).to(proxy.dtype))
+            proxy = self.linear4(torch.cat([proxy, feat], dim=-1))
         if self.RRM_embed:
-            top = h.shape[-1]
-            h = self.RR_D(h.reshape(-1, self.event_size, top)).reshape(-1, top)
-            embed = self.norm(self.linear1(h))
+            embed = self.norm(self.linear1(self._sequences(self.RR_D, h)))
         else:
             embed = self.linear1(h)
+        if self.RRM_prx_D:
+            proxy = self._sequences(self.RR_Dproxy, proxy)
+        if self.nonlinear_embed:
+            embed = self.linear2(self.activation(embed))
         if self.normalize_embed:
             proxy = proxy / torch.clamp(torch.linalg.vector_norm(
                 proxy.float(), dim=-1, keepdim=True), min=1e-12).to(proxy.dtype)

@@ -26,9 +26,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ieagan_torch.models.arch import g_arch
+from ieagan_torch.ops.attention import ILA, CBAMAttention, SelfAttention2d
 from ieagan_torch.ops.norm import BatchNorm, ClassCondBatchNorm
+from ieagan_torch.ops.prior import prior_features
 from ieagan_torch.ops.rrm import RelationalReasoning
-from ieagan_torch.ops.spectral import Embedding, Linear, SNConv2d, SNLinear
+from ieagan_torch.ops.spectral import Conv2d, Embedding, Linear, SNConv2d, SNLinear
 
 ACTIVATIONS = {
     "inplace_relu": F.relu,
@@ -41,6 +43,20 @@ def upsample_2x(x):
     """Nearest-neighbour 2x upsample, NCHW (reference F.interpolate
     scale_factor=2, model.py:338)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def image_attention(attn_type: str, ch: int, conv, fused: bool):
+    """The image attention of ``attn_type`` over ``ch`` channels, built with
+    ``conv(cin, cout, ksize, bias=...)``, or None for a type that means no
+    attention, as in the JAX package (``ieagan_tpu/models/generator.py:225-238``,
+    ``discriminator.py:187-199``). SA's kernel choice follows ``fused``."""
+    if attn_type == "sa":
+        return SelfAttention2d(ch, fused=fused, conv=conv)
+    if attn_type == "cbam":
+        return CBAMAttention(ch, conv)
+    if attn_type == "ila":
+        return ILA(ch)
+    return None
 
 
 class GBlock(nn.Module):
@@ -84,9 +100,26 @@ class Generator(nn.Module):
     """The port's Generator; build with ``Generator.from_config(config)``.
 
     Submodule names follow the JAX package's variable tree (``shared``,
-    ``linear_f``, ``RR_G``, ``linear``, ``blocks_<stage>_<i>``, ``output_bn``,
-    ``output_conv``), so ``models/convert.py`` maps a flax checkpoint onto it
-    name for name. Parameters are allocated empty: call
+    ``linear0``/``linear1`` [prior_embed], ``linear_f``, ``RR_G``, ``linear``,
+    ``blocks_<stage>_<i>``, ``attn_<stage>``, ``output_bn``, ``output_conv``),
+    so ``models/convert.py`` maps a flax checkpoint onto it name for name.
+    Options, as the JAX package takes them:
+
+      * ``G_attn`` stages get image attention of ``attn_type`` ``sa``,
+        ``cbam`` or ``ila`` after their last block (at the last stage, between
+        that block and ``output_bn``); any other ``attn_type`` means none;
+      * ``prior_embed``: ``shared`` at half width, ``linear0`` on the prior
+        feature (``ops/prior.py``), ``linear1`` on the two concatenated;
+      * ``G_param != "SN"``: plain linears and convs (with bias) where SN
+        ones are; ccbn's linears stay bias-free. The JAX generator raises
+        here, and in SA/CBAM under it, because flax's ``nn.Conv`` takes no
+        ``update_stats``; the port builds what that code describes;
+      * ``hier=False``: z alone goes into ``linear``, and every ccbn is
+        conditioned on the class embedding alone;
+      * ``norm_style`` goes to every ccbn (``ops/norm.py``).
+
+    The ``remat`` keys are read and ignored: recomputing activations changes
+    memory, not numbers. Parameters are allocated empty: call
     ``reset_parameters(generator)`` or load a state dict.
     """
 
@@ -96,47 +129,53 @@ class Generator(nn.Module):
                  rdof_dim: int = 4, hier: bool = True,
                  G_activation: str = "inplace_relu", BN_eps: float = 1e-5,
                  SN_eps: float = 1e-6, num_G_SVs: int = 1, num_G_SV_itrs: int = 1,
-                 RRM_prx_G: bool = True, normalized_proxy_G: bool = False,
-                 prior_embed: bool = False, n_head_G: int = 2, G_param: str = "SN",
-                 norm_style: str = "bn", event_size: int = 40,
-                 fused_attention: bool = False):
+                 attn_type: str = "sa", RRM_prx_G: bool = True,
+                 normalized_proxy_G: bool = False, prior_embed: bool = False,
+                 n_head_G: int = 2, G_param: str = "SN", norm_style: str = "bn",
+                 event_size: int = 40, fused_attention: bool = False):
         super().__init__()
         arch = g_arch(G_ch, G_attn)[resolution]
-        if any(arch["attention"].values()):
-            raise NotImplementedError("G image attention (SA/CBAM/ILA) is not ported")
-        if prior_embed:
-            raise NotImplementedError("prior_embed is not ported")
-        if G_param != "SN":
-            raise NotImplementedError(f"G_param {G_param!r} is not ported")
-        if not hier:
-            raise NotImplementedError("hier=False is not ported")
         self.arch = arch
         self.bottom_width = bottom_width
         self.H_base = H_base
+        self.n_classes = n_classes
         self.event_size = event_size
         self.RRM_prx_G = RRM_prx_G
         self.normalized_proxy_G = normalized_proxy_G
+        self.prior_embed = prior_embed
+        self.hier = hier
         self.activation = ACTIVATIONS[G_activation]
         shared_dim = shared_dim if shared_dim > 0 else dim_z
 
         sn = dict(num_svs=num_G_SVs, num_itrs=num_G_SV_itrs, eps=SN_eps)
-        linear = functools.partial(SNLinear, **sn)
-        conv = lambda cin, cout, ksize: SNConv2d(cin, cout, ksize, **sn)
-        cond_dim = (128 if RRM_prx_G else shared_dim) + dim_z
+        if G_param == "SN":
+            linear = functools.partial(SNLinear, **sn)
+            conv = lambda cin, cout, ksize, bias=True: SNConv2d(cin, cout, ksize, bias=bias,
+                                                                **sn)
+        else:
+            linear = Linear
+            conv = Conv2d
+        y_dim = 128 if RRM_prx_G else shared_dim
+        cond_dim = y_dim + dim_z if hier else y_dim
         # ccbn's linears are bias-free (reference: model.py:264-268)
         bn = lambda c: ClassCondBatchNorm(
             c, cond_dim, functools.partial(linear, bias=False), eps=BN_eps,
             norm_style=norm_style)
 
-        self.shared = Embedding(n_classes, shared_dim)
+        if prior_embed:  # reference: model.py:284-292, 455-460
+            self.shared = Embedding(n_classes, shared_dim // 2)
+            self.linear0 = linear(1, shared_dim // 2)
+            self.linear1 = linear(shared_dim // 2 * 2, shared_dim)
+        else:
+            self.shared = Embedding(n_classes, shared_dim)
         if RRM_prx_G:
             self.linear_f = linear(shared_dim + rdof_dim, 128)
             self.RR_G = RelationalReasoning(
                 num_layers=1, input_dim=128, num_heads=n_head_G,
                 dim_feedforward=128, linear=Linear, fused=fused_attention)
-        self.linear = linear(cond_dim, arch["in_channels"][0]
-                             * bottom_width ** 2 * H_base)
-        self.block_names = []
+        self.linear = linear(cond_dim if hier else dim_z,
+                             arch["in_channels"][0] * bottom_width ** 2 * H_base)
+        self.layer_names = []
         for index in range(len(arch["out_channels"])):
             for g_index in range(G_depth):
                 name = f"blocks_{index}_{g_index}"
@@ -146,7 +185,13 @@ class Generator(nn.Module):
                      else arch["out_channels"][index]),
                     conv, bn, self.activation,
                     upsample=arch["upsample"][index] and g_index == G_depth - 1))
-                self.block_names.append(name)
+                self.layer_names.append(name)
+            if arch["attention"][arch["resolution"][index]]:
+                attn = image_attention(attn_type, arch["out_channels"][index], conv,
+                                       fused_attention)
+                if attn is not None:
+                    self.add_module(f"attn_{index}", attn)
+                    self.layer_names.append(f"attn_{index}")
         self.output_bn = BatchNorm(arch["out_channels"][-1], eps=1e-5)
         self.output_conv = conv(arch["out_channels"][-1], 1, 3)
 
@@ -173,6 +218,9 @@ class Generator(nn.Module):
         f32 parameters, normalization statistics and tanh, as the JAX
         package does. Returns (B, H, W, 1) in [-1, 1]."""
         y_emb = self.shared(y).to(z.dtype)
+        if self.prior_embed:
+            feat = self.linear0(prior_features(y, self.n_classes).to(y_emb.dtype))
+            y_emb = self.linear1(torch.cat([y_emb, feat], dim=-1))
         if self.RRM_prx_G:
             if rdof is None:
                 raise ValueError("RRM_prx_G needs rdof of shape (B, rdof_dim)")
@@ -180,12 +228,16 @@ class Generator(nn.Module):
             y_emb = self.RR_G(y_emb.reshape(-1, self.event_size, 128)).reshape(-1, 128)
             if self.normalized_proxy_G:
                 y_emb = F.normalize(y_emb, dim=-1, eps=1e-12)
-        cond = torch.cat([y_emb, z.to(y_emb.dtype)], dim=-1)
-        h = self.linear(cond).reshape(
+        if self.hier:
+            cond = h = torch.cat([y_emb, z.to(y_emb.dtype)], dim=-1)
+        else:
+            cond, h = y_emb, z.to(y_emb.dtype)
+        h = self.linear(h).reshape(
             cond.shape[0], self.arch["in_channels"][0], self.bottom_width,
             self.bottom_width * self.H_base)
-        for name in self.block_names:
-            h = getattr(self, name)(h, cond, accumulate_standing)
+        for name in self.layer_names:
+            layer = getattr(self, name)
+            h = layer(h, cond, accumulate_standing) if isinstance(layer, GBlock) else layer(h)
         h = self.output_bn(h, accumulate_standing)
         h = self.output_conv(self.activation(h))
         return torch.tanh(h.float()).to(h.dtype).permute(0, 2, 3, 1)

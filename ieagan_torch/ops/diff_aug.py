@@ -1,5 +1,6 @@
-"""DiffAugment with explicit draws (twin of ``ieagan_tpu/ops/diff_aug.py:19-95``;
-reference: diff_aug.py:10-109).
+"""DiffAugment and the consistency-regularization augmentation with explicit
+draws (twin of ``ieagan_tpu/ops/diff_aug.py:19-125``; reference:
+diff_aug.py:10-109, cr_diff_aug.py:11-63).
 
 The JAX package draws inside the chain from a key; here the draws are an
 input, a dict of per-image tensors of shape (B,):
@@ -122,3 +123,27 @@ def diff_augment(x, draws: dict, policy: str = "color,translation,cutout"):
         else:
             raise KeyError(f"unknown DiffAugment policy {p!r}")
     return x
+
+
+def sample_cr_draws(generator: torch.Generator | None, b: int, h: int, w: int,
+                    device=None) -> dict:
+    """The draws ``cr_diff_augment`` needs for a (b, h, w, c) batch: ``flip``
+    (bool), ``t_h`` and ``t_w`` (ints), each of shape (b,)."""
+    device = draw_device(generator, device)
+    mh, mw = int(h * TRANSLATION_RATIO), int(w * TRANSLATION_RATIO)
+    return {"flip": torch.rand((b,), generator=generator, device=device) < 0.5,
+            "t_h": torch.randint(-mh, mh + 1, (b,), generator=generator, device=device),
+            "t_w": torch.randint(-mw, mw + 1, (b,), generator=generator, device=device)}
+
+
+def cr_diff_augment(x, draws: dict):
+    """Random W flip, then a reflect-padded translation of NHWC images ``x``
+    with explicit ``draws`` (reference: cr_diff_aug.py:11-63)."""
+    b, h, w, _ = x.shape
+    x = torch.where(draws["flip"].to(x.device)[:, None, None, None], x.flip(2), x)
+    mh, mw = int(h * TRANSLATION_RATIO), int(w * TRANSLATION_RATIO)
+    x_pad = F.pad(x.permute(0, 3, 1, 2), (mw, mw, mh, mh), mode="reflect").permute(0, 2, 3, 1)
+    rows = torch.arange(h, device=x.device)[None, :] + draws["t_h"][:, None] + mh
+    cols = torch.arange(w, device=x.device)[None, :] + draws["t_w"][:, None] + mw
+    batch = torch.arange(b, device=x.device)[:, None, None]
+    return x_pad[batch, rows[:, :, None], cols[:, None, :]]

@@ -7,7 +7,10 @@ Reference semantics (reference: layers.py:505-742), NCHW here:
   * eval mode: running stats, divided by the standing-stats counter when
     standing stats are in use (myBN, layers.py:547-599);
   * ccbn (layers.py:622-694): gain = 1 + Linear(y), bias = Linear(y), per
-    sample, after the unparameterized normalization.
+    sample, after the unparameterized normalization, which is batch norm
+    (``norm_style="bn"``) or, without running stats, instance norm
+    (``"in"``), group norm (``"gn*"``, ``"grp_<groups>"``, ``"ch_<channels
+    per group>"``) or none (``"nonorm"``).
 """
 
 from __future__ import annotations
@@ -67,30 +70,67 @@ class _BatchStats(nn.Module):
         return torch.addcmul(shift, x.float(), scale).to(x.dtype)
 
 
+def group_norm(x, norm_style: str, eps: float = 1e-5):
+    """Unparameterized group norm over NCHW ``x`` in f32, groups parsed from
+    the style as the reference does (layers.py:603-614): ``ch_<n>`` takes n
+    channels per group, ``grp_<n>`` n groups, anything else 16 groups."""
+    n, c = x.shape[:2]
+    if "ch" in norm_style:
+        groups = max(c // int(norm_style.split("_")[-1]), 1)
+    elif "grp" in norm_style:
+        groups = int(norm_style.split("_")[-1])
+    else:
+        groups = 16
+    xg = x.float().reshape(n, groups, -1)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = torch.square(xg - mean).mean(dim=-1, keepdim=True)
+    return ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+
+
 class ClassCondBatchNorm(_BatchStats):
-    """ccbn: shared BN statistics + per-sample gain/bias from linear maps of
-    the conditioning vector. ``linear(in, out)`` builds the maps: a bias-free
-    SNLinear in the G_shared configuration (reference: model.py:264-268)."""
+    """ccbn: a normalization + per-sample gain/bias from linear maps of the
+    conditioning vector. ``linear(in, out)`` builds the maps: a bias-free
+    SNLinear in the G_shared configuration (reference: model.py:264-268).
+    Only ``norm_style="bn"`` owns running stats (``mean``, ``var``,
+    ``accumulation_counter``), as only the JAX package's ``_bn_core``
+    creates them."""
 
     def __init__(self, num_features: int, cond_dim: int, linear: Callable,
                  eps: float = 1e-5, momentum: float = 0.1, norm_style: str = "bn"):
         super().__init__()
-        if norm_style != "bn":
-            raise NotImplementedError(f"norm_style {norm_style!r} is not ported")
+        group = norm_style.startswith("gn") or "grp" in norm_style or "ch" in norm_style
+        if norm_style not in ("bn", "in", "nonorm") and not group:
+            raise NotImplementedError(f"norm_style {norm_style!r}")
+        self.norm_style = norm_style
         self.gain = linear(cond_dim, num_features)
         self.bias = linear(cond_dim, num_features)
-        self._init_stats(num_features, eps, momentum)
+        if norm_style == "bn":
+            self._init_stats(num_features, eps, momentum)
+        else:
+            self.eps = eps
 
     def reset_parameters(self, generator=None):
         """Resets the stats; ``gain`` and ``bias`` reset themselves."""
         del generator
-        self._reset_stats()
+        if self.norm_style == "bn":
+            self._reset_stats()
 
     def forward(self, x, y, accumulate_standing: bool = False):
         gain = 1.0 + self.gain(y).float()
         bias = self.bias(y).float()
-        inv, mean = self._scale_shift(x, accumulate_standing)
-        return self._affine(x, inv, mean, gain, bias)
+        if self.norm_style == "bn":
+            inv, mean = self._scale_shift(x, accumulate_standing)
+            return self._affine(x, inv, mean, gain, bias)
+        if self.norm_style == "in":  # per-sample spatial moments (layers.py:674-684)
+            xf = x.float()
+            mean = xf.mean(dim=(2, 3), keepdim=True)
+            var = torch.square(xf - mean).mean(dim=(2, 3), keepdim=True)
+            out = (xf - mean) / torch.sqrt(var + self.eps)
+        elif self.norm_style == "nonorm":
+            out = x.float()
+        else:
+            out = group_norm(x, self.norm_style, self.eps)
+        return (out * gain[:, :, None, None] + bias[:, :, None, None]).to(x.dtype)
 
 
 class BatchNorm(_BatchStats):

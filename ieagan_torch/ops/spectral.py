@@ -168,6 +168,36 @@ class Linear(nn.Module):
                         None if self.bias is None else self.bias.to(x.dtype))
 
 
+class Conv2d(nn.Module):
+    """Plain 2-D conv (NCHW, stride 1, SAME padding), call-compatible with
+    SNConv2d: the twin of flax ``nn.Conv`` as the JAX generator builds it for
+    ``G_param != "SN"`` (``ieagan_tpu/models/generator.py:151-157``) and as
+    ILA builds its projections. Initialized as flax initializes it: LeCun
+    normal (truncated at two standard deviations), zero bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 bias: bool = True):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError("SAME padding needs an odd kernel size")
+        self.padding = kernel_size // 2
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        # flax's lecun_normal: std sqrt(1 / fan_in), corrected for the truncation
+        std = (1.0 / self.weight[0].numel()) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype),
+                        padding=self.padding)
+
+
 class Embedding(nn.Module):
     """Plain embedding with orthogonal init (reference: G's shared embedding,
     model.py:263)."""

@@ -22,11 +22,24 @@ same detach points and the same order of updates:
   * EMA over every float tensor of G's state (parameters, BN stats, ``u``,
     ``sv``, the standing counter) with decay 0 until ``ema_start``.
 
+Options, as the JAX package's step takes them:
+
+  * ``split_D=False``: one D pass over ``[fake; real]`` with labels
+    ``[y; y]`` in the D phase (the G phase still passes the fakes alone);
+  * ``Con_reg``: a third D pass in the D phase, over ``cr_diff_augment`` of
+    the reals, adding cr_lambda * (l2(score_r, score_ra) + l2(embed_r,
+    embed_ra)) under Contra, the score term alone under Proj;
+  * ``conditional_strategy="Proj"``: D returns its score alone and only the
+    hinge losses (and Con_reg's score term) apply;
+  * ``replicate_G_step_bug``: G's Adam skips its update while ``clip_norm``
+    is None (the reference's gating, train_fns.py:190-192).
+
 Random draws come from the caller's ``torch.Generator`` or, for tests and
 golden checks, from ``draw_schedule``, consumed in call order: per D
 accumulation z, rdof (with RRM_prx_G), the fakes' DiffAugment draws and the
-reals' (with diff_aug / diff_aug_real); then per G accumulation z, rdof and
-the fakes' draws.
+reals' (with diff_aug / diff_aug_real), the reals' consistency draws (with
+Con_reg; ``sample_cr_draws``); then per G accumulation z, rdof and the fakes'
+draws.
 
 The step computes in the state's compute type (``core/precision.py``), as
 the JAX package's modules built with the policy's dtype do: z is drawn in f32
@@ -53,7 +66,8 @@ from ieagan_torch import losses
 from ieagan_torch.core.config import DEFAULT_CONFIG
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
-from ieagan_torch.ops.diff_aug import diff_augment, sample_diff_aug_draws
+from ieagan_torch.ops.diff_aug import (cr_diff_augment, diff_augment, sample_cr_draws,
+                                       sample_diff_aug_draws)
 from ieagan_torch.train.optim import lr_schedules, make_optimizers
 from ieagan_torch.train.ortho import apply_ortho_reg
 from ieagan_torch.utils.checkpoint import load_checkpoint
@@ -112,16 +126,6 @@ def restore_train_state(path: str, tag: str, config: dict | None = None,
     return load_checkpoint(path, state, tag, load_optim=False)[0]
 
 
-def _unported(config: dict) -> list[str]:
-    checks = {
-        "conditional_strategy": config["conditional_strategy"] != "Contra",
-        "Con_reg": bool(config["Con_reg"]),
-        "split_D": not bool(config["split_D"]),
-        "replicate_G_step_bug": bool(config.get("replicate_G_step_bug", False)),
-    }
-    return [k for k, v in checks.items() if v]
-
-
 def _on(device, item, dtype=None):
     """A scheduled draw (array, tensor or dict of them) as tensors on device;
     numpy bfloat16 arrays (JAX's bfloat16 draws) arrive unchanged."""
@@ -143,16 +147,24 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     x: (B, H, W, 1) real images in [-1, 1]; y: (B,) int labels; B a multiple
     of the event size. ``metrics`` maps D_loss_real, D_loss_fake,
     unif_loss_d, iea_loss, unif_loss_g and G_loss to floats (those the config
-    turns on). ``draw_schedule`` replaces the random draws, in call order
-    (see the module docstring); ``capture_grads`` adds the gradients after
+    turns on; unif_loss_d, iea_loss and unif_loss_g only under Contra).
+    ``draw_schedule`` replaces the random draws, in call order (see the
+    module docstring); ``capture_grads`` adds the gradients after
     ortho-reg, by parameter name, under ``_grads_D`` and ``_grads_G``.
     ``steps_per_epoch`` sets the learning-rate schedule's epochs (constant
     while 0, as the JAX package's step).
     """
     config = dict(DEFAULT_CONFIG, **config)
-    bad = _unported(config)
-    if bad:
-        raise NotImplementedError(f"train-step options not ported: {bad}")
+    strategy = config["conditional_strategy"]
+    if strategy not in ("Contra", "Proj"):
+        raise NotImplementedError(f"conditional_strategy {strategy!r}")
+    contra_on = strategy == "Contra"
+    split_D = bool(config["split_D"])
+    con_reg, cr_lambda = bool(config["Con_reg"]), float(config["cr_lambda"])
+    # G's optimizer skips its update while clip_norm is None (the reference's
+    # bug, train_fns.py:190-192, reproduced on request)
+    skip_g_update = (bool(config.get("replicate_G_step_bug", False))
+                     and config.get("clip_norm") is None)
     n_classes = int(config["n_classes"])
     dim_z, rdof_dim = int(config["dim_z"]), int(config["rdof_dim"])
     use_rdof = bool(config["RRM_prx_G"])
@@ -178,12 +190,20 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
         granularity of their DiffAugment draws."""
         b, h, w, _ = x.shape
         if schedule is not None:
-            return _on(x.device, next(schedule), torch.float32 if kind != "aug" else None)
+            return _on(x.device, next(schedule), torch.float32 if kind in ("z", "rdof") else None)
         if kind == "z":
             return torch.randn((b, dim_z), generator=generator, device=x.device) * z_std
         if kind == "rdof":
             return torch.randn((b, rdof_dim), generator=generator, device=x.device)
+        if kind == "cr":
+            return sample_cr_draws(generator, b, h, w, device=x.device)
         return sample_diff_aug_draws(generator, b, h, w, policy, device=x.device, dtype=x.dtype)
+
+    def d_forward(x, y):
+        """D's ``(proxy, embed, score (B,))``; Proj gives the score alone."""
+        if contra_on:
+            return D(x, y)
+        return None, None, D(x, y).squeeze(-1)
 
     def draw_latents(generator, x, compute_dtype):
         """z drawn in f32 and cast to the compute type; rdof in f32 (G casts)."""
@@ -229,17 +249,34 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
                     fake_in = diff_augment(fake, draw("aug", generator, fake), policy)
                     if diff_aug_real:
                         x_in = diff_augment(x, draw("aug", generator, x), policy)
-                _, _, score_f = D(fake_in, y)
-                proxy_r, embed_r, score_r = D(x_in.to(compute_dtype), y)
+                x_in = x_in.to(compute_dtype)
+                if split_D:  # the fake pass, then the real pass (reference: model.py:985-1010)
+                    _, _, score_f = d_forward(fake_in, y)
+                    proxy_r, embed_r, score_r = d_forward(x_in, y)
+                else:  # one pass over [fake; real] (reference: model.py:1023-1086)
+                    proxy, embed, score = d_forward(torch.cat([fake_in, x_in]), torch.cat([y, y]))
+                    nb = fake_in.shape[0]
+                    score_f, score_r = score[:nb], score[nb:]
+                    proxy_r = None if proxy is None else proxy[nb:]
+                    embed_r = None if embed is None else embed[nb:]
                 loss_real, loss_fake = losses.loss_hinge_dis(score_f, score_r)
-                d_loss = loss_real + loss_fake + contra_lambda * contra(embed_r, proxy_r, mask, y)
+                d_loss = loss_real + loss_fake
                 mets = {"D_loss_real": loss_real, "D_loss_fake": loss_fake}
-                if unif_on:
+                if contra_on:
+                    d_loss = d_loss + contra_lambda * contra(embed_r, proxy_r, mask, y)
+                if con_reg:  # a third D pass (reference: train_fns.py:57-66)
+                    x_aug = cr_diff_augment(x, draw("cr", generator, x)).to(compute_dtype)
+                    _, embed_ra, score_ra = d_forward(x_aug, y)
+                    consistency = losses.l2_loss(score_r, score_ra)
+                    if contra_on:
+                        consistency = consistency + losses.l2_loss(embed_r, embed_ra)
+                    d_loss = d_loss + cr_lambda * consistency
+                if contra_on and unif_on:
                     u = losses.unif_loss(embed_r)
                     d_loss = d_loss + unif_lambda * u
                     mets["unif_loss_d"] = u
                 (d_loss / float(num_D_acc)).backward()
-                embed_real = embed_r.detach()
+                embed_real = None if embed_r is None else embed_r.detach()
             finish_grads(D, d_ortho)
             if capture_grads:
                 metrics["_grads_D"] = capture(D)
@@ -255,11 +292,12 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
             fake = G(z, y, rdof)
             if do_diff_aug:
                 fake = diff_augment(fake, draw("aug", generator, fake), policy)
-            proxy_f, embed_f, score_f = D(fake, y)
-            g_loss = losses.loss_hinge_gen(score_f) + contra_lambda * contra(
-                embed_f, proxy_f, mask, y)
+            proxy_f, embed_f, score_f = d_forward(fake, y)
+            g_loss = losses.loss_hinge_gen(score_f)
             mets = {}
-            if iea_on:
+            if contra_on:
+                g_loss = g_loss + contra_lambda * contra(embed_f, proxy_f, mask, y)
+            if contra_on and iea_on:
                 il = losses.iea_loss(embed_f, embed_real)
                 g_loss = g_loss + iea_lambda * il
                 mets["iea_loss"] = il
@@ -273,7 +311,8 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
         finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
         if capture_grads:
             metrics["_grads_G"] = capture(G)
-        state.opt_G.step(g_lr)
+        if not skip_g_update:
+            state.opt_G.step(g_lr)
         metrics.update(mets)
 
         # ---------------- EMA ----------------

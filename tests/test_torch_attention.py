@@ -121,8 +121,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         q = torch.empty(2, 40, 64, device="cuda")
         with pytest.raises(TypeError):
             attention_fwd(q.half(), q.half(), q.half(), 1.0)
-        wide = torch.empty(2, 40, 256, device="cuda")
-        with pytest.raises(ValueError, match="dk, dv <= 128"):
+        wide = torch.empty(2, 40, 512, device="cuda")
+        with pytest.raises(ValueError, match="dk, dv <= 256"):
             attention_fwd(wide, wide, wide, 1.0)
         with pytest.raises(ValueError, match="contiguous"):
             t = q.transpose(0, 1)

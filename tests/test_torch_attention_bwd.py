@@ -196,6 +196,6 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises(ValueError, match="contiguous"):
             t = torch.empty_strided((2, 40, 64), (64, 128, 1), device="cuda")
             bwd(c, c, c, c, lse, t)
-        wide = torch.empty(2, 40, 256, device="cuda")
-        with pytest.raises(ValueError, match="dk, dv <= 128"):
+        wide = torch.empty(2, 40, 512, device="cuda")
+        with pytest.raises(ValueError, match="dk, dv <= 256"):
             bwd(wide, wide, wide, wide, lse, wide)

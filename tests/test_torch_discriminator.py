@@ -166,15 +166,6 @@ def test_tiny_discriminator_matches_jax_through_pallas(train, pallas_interpreter
     _check_spectral(tmod, (ups if train else v)["spectral"])
 
 
-def test_unported_discriminator_options_raise():
-    for override in (dict(attn_type="cbam"), dict(attn_type="ila"),
-                     dict(conditional_strategy="Proj"), dict(prior_embed=True),
-                     dict(RRM_prx_D=True), dict(nonlinear_embed=True),
-                     dict(rrm_full_batch_sequence=True)):
-        with pytest.raises(NotImplementedError):
-            tdisc.Discriminator.from_config(tiny_config(**override))
-
-
 @pytest.fixture(scope="module")
 def copy16000():
     with open(f"{CHECKPOINT}/D_copy16000.msgpack", "rb") as fp:

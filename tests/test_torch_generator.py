@@ -163,12 +163,6 @@ def test_model_random_init_is_deterministic_and_different_per_seed():
     assert not torch.equal(a["linear.weight"], c["linear.weight"])
 
 
-def test_unported_options_raise():
-    for override in (dict(G_attn="16"), dict(prior_embed=True), dict(G_param="none")):
-        with pytest.raises(NotImplementedError):
-            Generator.from_config(tiny_config(**override))
-
-
 def test_flagship_rrm_with_best0_weights(pallas_interpreter):
     """G's RRM at flagship width (3 events x 40 sensors x 128, 2 heads of 64)
     with the real best0 weights, against JAX through the Pallas interpreter.

@@ -2,9 +2,10 @@
 bounds ``chip_smoke.py`` reports, on the CPU.
 
 The kernels pad each head width to 32, 64 or 128 and keep one compiled
-instance per padded (dk, dv) pair, so the wrappers take any dk, dv <= 128 and
-refuse wider heads before any launch. Fake CUDA tensors stand in for real
-ones.
+instance per padded (dk, dv) pair; a pair with a width past 128 pads both to
+256 and takes the one (256, 256) instance. So the wrappers take any
+dk, dv <= 256 and refuse wider heads before any launch. Fake CUDA tensors
+stand in for real ones.
 """
 
 import re
@@ -20,7 +21,7 @@ from ieagan_torch.kernels import flash_attention as fa
 from ieagan_torch.kernels import selfcheck
 
 # (dk, dv) at the model's sites and in the JAX self-check (D_ch 16)
-MODEL_WIDTHS = [(64, 64), (128, 128), (32, 128), (16, 64)]
+MODEL_WIDTHS = [(64, 64), (128, 128), (32, 128), (16, 64), (256, 256)]
 
 
 def _header_instances():
@@ -30,24 +31,33 @@ def _header_instances():
 
 
 @pytest.mark.parametrize("d,want", [(1, 32), (5, 32), (16, 32), (32, 32), (33, 64), (64, 64),
-                                    (65, 128), (100, 128), (128, 128)])
+                                    (65, 128), (100, 128), (128, 128), (129, 256), (256, 256)])
 def test_padded_width(d, want):
     assert fa.padded_width(d) == want
 
 
+@pytest.mark.parametrize("dk,dv,want", [(32, 128, (32, 128)), (129, 8, (256, 256)),
+                                        (64, 256, (256, 256)), (256, 256, (256, 256))])
+def test_padded_pair(dk, dv, want):
+    """A pair with a width past 128 takes the (256, 256) instance."""
+    assert fa.padded_pair(dk, dv) == want
+
+
 def test_widths_past_128_are_refused():
-    with pytest.raises(ValueError, match="dk, dv <= 128"):
-        fa.padded_width(129)
+    """Since the 256 instance, the refusal starts past 256."""
+    with pytest.raises(ValueError, match="dk, dv <= 256"):
+        fa.padded_width(257)
 
 
 def test_every_padded_pair_is_built():
-    """The CUDA sources instantiate every pair of padded widths, so every
-    dk, dv <= 128 the wrappers let through has a kernel, the model's widths
-    among them."""
+    """The CUDA sources instantiate every pair of padded widths up to 128 and
+    the one (256, 256) pair, so every dk, dv <= 256 the wrappers let through
+    has a kernel, the model's widths among them."""
     instances = _header_instances()
-    assert instances == {(a, b) for a in fa.PADDED_WIDTHS for b in fa.PADDED_WIDTHS}
+    narrow = [w for w in fa.PADDED_WIDTHS if w <= 128]
+    assert instances == {(a, b) for a in narrow for b in narrow} | {(256, 256)}
     for dk, dv in MODEL_WIDTHS + [case[4:6] for case in selfcheck.CASES]:
-        assert (fa.padded_width(dk), fa.padded_width(dv)) in instances
+        assert fa.padded_pair(dk, dv) in instances
 
 
 @pytest.fixture
@@ -62,7 +72,7 @@ def no_nvcc(monkeypatch):
     monkeypatch.setattr(fa, "_LIB_BWD", None)
 
 
-@pytest.mark.parametrize("dk,dv", [(5, 7), (100, 48), (16, 64), (32, 128)])
+@pytest.mark.parametrize("dk,dv", [(5, 7), (100, 48), (16, 64), (32, 128), (256, 256), (200, 64)])
 def test_padded_widths_reach_the_kernels(no_nvcc, dk, dv):
     """Odd widths pass the width check and go on to the kernels' build."""
     with FakeTensorMode():
@@ -75,15 +85,16 @@ def test_padded_widths_reach_the_kernels(no_nvcc, dk, dv):
             fa.attention_bwd(q, k, v, o, lse, o, 0.5)
 
 
-@pytest.mark.parametrize("dk,dv", [(129, 64), (64, 129), (256, 256)])
+@pytest.mark.parametrize("dk,dv", [(257, 64), (64, 257), (512, 512)])
 def test_widths_past_128_are_refused_before_launch(no_nvcc, dk, dv):
-    """Heads wider than 128 are refused by both wrappers before any build or
-    launch, naming the widths."""
+    """Heads wider than 256 (since the 256 instance; 128 before it) are
+    refused by both wrappers before any build or launch, naming the
+    widths."""
     before = (fa.attention_fwd.launches, fa.attention_bwd.launches)
     with FakeTensorMode():
         q, v = torch.empty(2, 40, dk, device="cuda"), torch.empty(2, 40, dv, device="cuda")
         lse = torch.empty(2, 40, device="cuda")
-        message = rf"dk, dv <= 128; got dk={dk}, dv={dv}"
+        message = rf"dk, dv <= 256; got dk={dk}, dv={dv}"
         with pytest.raises(ValueError, match=message):
             fa.attention_fwd(q, q, v, 1.0)
         with pytest.raises(ValueError, match=message):

@@ -28,9 +28,11 @@ def test_run_check_refuses_without_a_cuda_device(monkeypatch):
 
 
 def test_cases_are_the_model_sites_and_the_jax_selfcheck_shape():
+    """The sites include D's proxy RRM (head width 256, at the concat mode's
+    sequence of 80) since the kernels' 256 instance."""
     widths = {case[4:6] for case in selfcheck.CASES}
-    assert widths == {(64, 64), (128, 128), (32, 128), (16, 64)}
-    assert {case[2:4] for case in selfcheck.CASES} == {(40, 40), (3072, 768)}
+    assert widths == {(64, 64), (128, 128), (32, 128), (16, 64), (256, 256)}
+    assert {case[2:4] for case in selfcheck.CASES} == {(40, 40), (3072, 768), (80, 80)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

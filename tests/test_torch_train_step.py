@@ -227,9 +227,3 @@ def test_ema_matches_jax(one_step):
     moved = [n for n, v in tstate.G_ema.state_dict().items() if not torch.equal(v, ema0[n])]
     assert moved, "EMA moved nothing"
 
-
-def test_unported_step_options_raise():
-    G, D = Generator.from_config(CONFIG), Discriminator.from_config(CONFIG)
-    for override in (dict(Con_reg=True), dict(split_D=False), dict(replicate_G_step_bug=True)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(G, D, dict(CONFIG, **override))
