@@ -82,6 +82,19 @@ Phases, each timed on a line of its own:
    (b) train two f32 steps fused and plain from one state and draws
    (phase 5's bounds) with B1/B2 launches by site and phase, then two bf16
    steps; (c) trains with no fused attention, weights moving.
+11. data-parallel training: (a) ``torchrun --nproc-per-node 1
+   train_torch.py --mesh 1`` on NCCL in bf16 at the flagship width, three
+   steps and the final save, then a resume to step four (run beside (b)'s
+   single-process steps and its ranks' set-up, its time not read); ms per
+   step beside phase 7's;
+   (b) two ranks spawned on the one card over gloo (NCCL refuses two ranks
+   on one device), f32 with TF32 off, from ``copy16000``, one event of 40
+   each with fixed draws, against one process taking both events: metrics
+   and per-leaf gradients (phase 5's bounds, but G's median held to 1e-2; a
+   yardstick printed beside it, one process with its batch-norm sums taken
+   event by event), every rank's state bit-equal, a control on rank 0's
+   event alone that must break the bounds; per rank B1/B2 launches, gloo
+   calls, ms and MB, peak memory.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -800,7 +813,7 @@ def driver_phase(torch, np):
     # attention's autograd function are wrapped to record per-step launches,
     # times and the kernels' input types.
     steps, saves, dtypes, snaps = [], [], set(), {}
-    make_step, save_ckpt = driver.make_train_step, driver.save_checkpoint
+    make_step, save_ckpt = driver.make_sharded_train_step, driver.save_checkpoint
     fwd, bwd = fa.attention_fwd, fa.attention_bwd
 
     def counted_make_train_step(*args, **kwargs):
@@ -838,7 +851,7 @@ def driver_phase(torch, np):
         dtypes.add(str(do.dtype))
         return flash_bwd(ctx, do)
 
-    driver.make_train_step, driver.save_checkpoint = counted_make_train_step, timed_save
+    driver.make_sharded_train_step, driver.save_checkpoint = counted_make_train_step, timed_save
     fa.FlashAttention.forward, fa.FlashAttention.backward = (staticmethod(seen_fwd),
                                                              staticmethod(seen_bwd))
     try:
@@ -921,7 +934,7 @@ def driver_phase(torch, np):
             snaps["data run"] = True
             data_path(torch, np, driver, root, dict(DEFAULT_CONFIG, **DRIVER_RUN))
     finally:
-        driver.make_train_step, driver.save_checkpoint = make_step, save_ckpt
+        driver.make_sharded_train_step, driver.save_checkpoint = make_step, save_ckpt
         fa.FlashAttention.forward = staticmethod(flash_fwd)
         fa.FlashAttention.backward = staticmethod(flash_bwd)
         torch.cuda.empty_cache()
@@ -1746,6 +1759,386 @@ def option_proj(torch, np, cfg, sites):
     return ms
 
 
+# Phase 11: data-parallel training. 11a runs the entry point as a user
+# launches it on one GPU: torchrun with one process, --mesh 1, NCCL, the
+# bf16 policy at the flagship width, three steps and the final save, then a
+# resume to step four. 11b holds the data-parallel step to one process: the
+# card holds one GPU and NCCL refuses two ranks on one device, so two ranks
+# share it over gloo (which stages CUDA tensors through the host: its step
+# time is no scaling number), each taking one event of 40 in f32 with TF32
+# off, from copy16000 and fixed draws, against one process taking both
+# events in one step. Every rank's whole state must be bit-equal after the
+# step, and one process taking rank 0's event alone (the control) must
+# break the bounds. The bounds are phase 5's (metrics; per-leaf gradient max
+# of G and D; D's median) except G's per-leaf median: on the card a batch of
+# 40 does not round as rows of a batch of 80 do (11b prints how far G's eval
+# output for one event moves between the two), and from copy16000 the step
+# amplifies any such rounding change in G's gradient to a few 1e-3 (PERF.md
+# §6). One process on both events whose batch-norm sums are taken as the
+# ranks take them (each event's, then added), a change of summation order
+# alone, moves G's median by 5.2e-3 on the H100 (the yardstick 11b prints,
+# not a bound); two ranks read 2.2e-3 there and the one-event
+# control 1.3. G's median bound sits between the two.
+PHASE11_STEPS = 3
+PHASE11_RANKS = 2
+PHASE11_G_MEDIAN = 1e-2
+
+
+def phase11_argv(root, *extra):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", os.path.join(ROOT, "train_torch.py"), "--outputroot", root, "--run-name", "dp",
+            "--mesh", "1", "--debug", "true", "--debug_batches", str(PHASE11_STEPS),
+            "--num_epochs", "1", "--log_interval", "1", "--sv_log_interval", "1000000",
+            "--save_every", "1000000", "--test_every", "1000000", "--samples_per_class_sheet",
+            "0", *extra]
+
+
+def parallel_entry_point(np, alongside):
+    """Phase 11a: ``torchrun --nproc-per-node 1 train_torch.py --mesh 1`` on
+    NCCL, three bf16 steps and a save, then a resume to step four, during
+    which ``alongside()`` runs in this process (the resume's time is not
+    read). Returns the ms per step (host clock between the steps' log lines,
+    steps 2-3) and what ``alongside`` returned."""
+    import re
+    import tempfile
+
+    def launch(root, *extra):
+        # loopback only: the card's machine has no other interface to offer
+        env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+        return subprocess.Popen(phase11_argv(root, *extra), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+
+    def finish(proc):
+        try:
+            out, err = proc.communicate(timeout=400)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"11a torchrun rc {proc.returncode}: {out[-3000:]}\n{err[-3000:]}")
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        out = finish(launch(root))
+        run_s = time.perf_counter() - t
+        if "mesh {'data': 1, 'model': 1} over 1 processes (nccl)" not in out:
+            raise SystemExit(f"11a: the run did not train on a mesh over NCCL: {out[-3000:]}")
+        logged = re.findall(r"^itr (\d+) \(([0-9.]+)s, ([0-9.]+)s/itr\)", out, re.M)
+        itrs = {int(i): float(t) for i, _, t in logged}
+        loop_s = max(float(e) for _, e, _ in logged) if logged else float("nan")
+        if sorted(itrs) != list(range(1, PHASE11_STEPS + 1)):
+            raise SystemExit(f"11a: steps logged {sorted(itrs)}: {out[-3000:]}")
+        weights = os.path.join(root, "dp", "weights")
+        if not os.path.exists(os.path.join(weights, f"D_optim_copy{PHASE11_STEPS}.msgpack")):
+            raise SystemExit(f"11a: no checkpoint copy{PHASE11_STEPS}")
+        t = time.perf_counter()
+        proc = launch(root, "--resume", "true", "--num_epochs", "2", "--stop_after",
+                      str(PHASE11_STEPS + 1))
+        try:
+            beside = alongside()
+        finally:
+            out2 = finish(proc)
+        resume_s = time.perf_counter() - t
+        if (f"Resuming from checkpoint 'copy{PHASE11_STEPS}'" not in out2
+                or not re.search(rf"^itr {PHASE11_STEPS + 1} ", out2, re.M)
+                or not os.path.exists(os.path.join(weights,
+                                                   f"G_ema_copy{PHASE11_STEPS + 1}.msgpack"))):
+            raise SystemExit(f"11a: the resume did not reach step {PHASE11_STEPS + 1}: "
+                             f"{out2[-3000:]}")
+    ms = [itrs[i] * 1e3 for i in range(2, PHASE11_STEPS + 1)]
+    print(f"11a torchrun --nproc-per-node 1 --mesh 1 (NCCL, bf16): {run_s:.1f} s for "
+          f"{PHASE11_STEPS} steps and a save ({loop_s:.1f} s of it from the train loop's start "
+          f"to step {PHASE11_STEPS}'s log line); the resume beside 11b's single process "
+          f"{resume_s:.1f} s; ms per step (steps 2-{PHASE11_STEPS}, host clock between log "
+          "lines): " + ", ".join(f"{m:.1f}" for m in ms), flush=True)
+    return float(np.mean(ms)), beside
+
+
+def phase11_inputs(torch):
+    """The global batch of 11b on the host: two events of 40 (uniform
+    reals, each event's labels a permutation) and the step's fixed draws at
+    the global shape (z, rdof, the fakes' and the reals' DiffAugment draws,
+    then the G phase's)."""
+    from ieagan_torch.ops.diff_aug import sample_diff_aug_draws
+
+    n = 40 * PHASE11_RANKS
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand((n, 256, 768, 1), generator=gen) * 2 - 1
+    y = torch.cat([torch.randperm(40, generator=gen) for _ in range(PHASE11_RANKS)])
+    aug = lambda: sample_diff_aug_draws(gen, n, 256, 768, device="cpu")
+    draw = lambda k: torch.randn((n, k), generator=gen)
+    return x, y, [draw(128), draw(4), aug(), aug(), draw(128), draw(4), aug()]
+
+
+def phase11_single(torch, x, y, schedule, split_moments=False):
+    """One process's f32 step from copy16000 on the given batch and draws:
+    metrics and gradients, on the host. ``split_moments``: batch norm sums
+    each event's rows and adds them, as the ranks' all-reduce does. With
+    more than one event, also how far G's eval output for the first event
+    moves between a batch of that event alone and the whole batch
+    (``batch_rounding``, max abs over tanh; the step's new weights)."""
+    import ieagan_torch.ops.norm as norm
+    from ieagan_torch.train.step import make_train_step, restore_train_state
+
+    def moments_by_event(xf):
+        n = xf.numel() // xf.shape[1]
+        sums = sum(torch.stack([e.sum(dim=(0, 2, 3)), (e * e).sum(dim=(0, 2, 3))])
+                   for e in xf.split(40))
+        mean = sums[0] / n
+        return mean, sums[1] / n - mean * mean, n
+
+    state = restore_train_state(CHECKPOINT, "copy16000", device="cuda")
+    to = lambda item: ({k: v.cuda() for k, v in item.items()} if isinstance(item, dict)
+                       else item.cuda())
+    moments = norm._moments
+    if split_moments:
+        norm._moments = moments_by_event
+    try:
+        m = make_train_step(state.G, state.D, {}, draw_schedule=[to(i) for i in schedule],
+                            capture_grads=True)(state, x.cuda(), y.cuda())
+    finally:
+        norm._moments = moments
+    out = {"metrics": {k: v for k, v in m.items() if not k.startswith("_")},
+           "grads": {f"{net}.{k}": v.cpu() for net in ("G", "D")
+                     for k, v in m[f"_grads_{net}"].items()}}
+    if x.shape[0] > 40:
+        z, rdof, yc = schedule[0].cuda(), schedule[1].cuda(), y.cuda()
+        with torch.no_grad():
+            state.G.eval()
+            alone = state.G(z[:40], yc[:40], rdof[:40])
+            within = state.G(z, yc, rdof)[:40]
+        out["batch_rounding"] = float((alone - within).abs().max())
+    del state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase11_rank(rank, world, init_file, job_path, out_dir, go):
+    """One rank of 11b, spawned: gloo on the card, one event, the sharded
+    f32 step from copy16000, taken once ``go`` is set (the set-up runs
+    beside 11a's resume); saves its launches, collective times, peak
+    memory, the state's digest and (rank 0) metrics and gradients."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        import ieagan_torch.kernels.flash_attention as fa
+        from ieagan_torch.core.mesh import make_mesh
+        from ieagan_torch.parallel.sharding import (host_local_batch, make_sharded_train_step,
+                                                    place_state)
+        from ieagan_torch.train.step import restore_train_state
+
+        job = torch.load(job_path, weights_only=False)
+        mesh = make_mesh(world)
+        state = place_state(restore_train_state(CHECKPOINT, "copy16000", device="cuda"), mesh)
+        to = lambda item: ({k: v.cuda() for k, v in item.items()} if isinstance(item, dict)
+                           else item.cuda())
+        x, y = host_local_batch(mesh, job["x"].cuda(), job["y"].cuda())
+        step = make_sharded_train_step(state.G, state.D, {}, mesh,
+                                       draw_schedule=[to(i) for i in job["schedule"]],
+                                       capture_grads=True)
+        if not go.wait(900):
+            raise SystemExit(f"11b rank {rank}: no signal to step")
+        # observation only: each collective timed between synchronizations
+        coll = {}
+
+        def timed(name, fn):
+            def wrapper(tensor_or_list, *args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = fn(tensor_or_list, *args, **kwargs)
+                torch.cuda.synchronize()
+                c = coll.setdefault(name, {"calls": 0, "ms": 0.0, "MB": 0.0})
+                t_in = args[0] if name == "all_gather" else tensor_or_list
+                c["calls"] += 1
+                c["ms"] += (time.perf_counter() - t) * 1e3
+                c["MB"] += t_in.numel() * t_in.element_size() / 2**20
+                return res
+            return wrapper
+
+        dist.all_reduce = timed("all_reduce", dist.all_reduce)
+        dist.all_gather = timed("all_gather", dist.all_gather)
+        torch.cuda.reset_peak_memory_stats()
+        fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, x, y)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        out = {"launches": {"B1": fa.attention_fwd.launches, "B2": fa.attention_bwd.launches},
+               "collectives": coll, "step_ms": step_ms,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "digest": {}}
+        for net in ("G", "D", "G_ema"):
+            for k, v in getattr(state, net).state_dict().items():
+                out["digest"][f"{net}.{k}"] = hashlib.sha256(
+                    v.detach().cpu().numpy().tobytes()).hexdigest()
+        for net in ("G", "D"):
+            opt = getattr(state, f"opt_{net}")
+            for k, p in getattr(state, net).named_parameters():
+                for mom in opt.moment_names:
+                    out["digest"][f"opt_{net}.{k}.{mom}"] = hashlib.sha256(
+                        opt.state[p][mom].cpu().numpy().tobytes()).hexdigest()
+            out["digest"][f"opt_{net}.counts"] = (opt.count, opt.sched_count, state.itr)
+        if rank == 0:
+            out["metrics"] = {k: v for k, v in m.items() if not k.startswith("_")}
+            out["grads"] = {f"{net}.{k}": v.cpu() for net in ("G", "D")
+                            for k, v in m[f"_grads_{net}"].items()}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase11_gap(np, got, want):
+    """A pair of steps read as phase 5 reads fused against plain: the
+    metrics' max relative difference and whether each is within phase 5's
+    bound, and per network the per-leaf gradient error's max and median (a
+    leaf null in ``want`` and not in ``got`` counts as infinitely off)."""
+    keys = list(want["metrics"])
+    if set(got["metrics"]) != set(keys):
+        raise SystemExit(f"11b: metrics {sorted(got['metrics'])} against {sorted(keys)}")
+    gap = {"metrics": max(abs(got["metrics"][k] - want["metrics"][k])
+                          / max(abs(want["metrics"][k]), 1e-12) for k in keys),
+           "metrics_ok": all(abs(got["metrics"][k] - want["metrics"][k])
+                             <= STEP_METRIC_ATOL + STEP_METRIC_RTOL * abs(want["metrics"][k])
+                             for k in keys)}
+    errs = {}
+    for name, w in want["grads"].items():
+        g, w = got["grads"][name].double(), w.double()
+        if float(w.norm()) < 1e-5:  # null in exact arithmetic: must stay null
+            if float(g.norm()) >= 1e-5:
+                errs[name] = float("inf")
+            continue
+        errs[name] = float((g - w).norm()) / float(w.norm())
+    for net in ("G", "D"):
+        vals = [v for k, v in errs.items() if k.startswith(net + ".")]
+        gap[net] = (max(vals), float(np.median(vals)))
+    return gap
+
+
+def phase11_within(gap):
+    """Phase 5's bounds on the metrics, both networks' per-leaf max and D's
+    median; G's median within ``PHASE11_G_MEDIAN``."""
+    return (gap["metrics_ok"] and gap["G"][0] < STEP_GRAD_MAX and gap["D"][0] < STEP_GRAD_MAX
+            and gap["D"][1] < STEP_GRAD_MEDIAN and gap["G"][1] < PHASE11_G_MEDIAN)
+
+
+def phase11_line(label, gap):
+    return (f"11b {label}: metrics max rel diff {gap['metrics']:.3e}; per-leaf gradient error "
+            f"G max {gap['G'][0]:.3e} median {gap['G'][1]:.3e}, D max {gap['D'][0]:.3e} median "
+            f"{gap['D'][1]:.3e}")
+
+
+def phase11_singles(torch, np, x, y, schedule):
+    """11b's single-process steps: both events, both with BN summed by
+    event (the yardstick), rank 0's event alone (the control)."""
+    t = time.perf_counter()
+    both = phase11_single(torch, x, y, schedule)
+    by_event = phase11_single(torch, x, y, schedule, split_moments=True)
+    rows = slice(0, 40)
+    alone = phase11_single(torch, x[rows], y[rows], [
+        {k: v[rows] for k, v in i.items()} if isinstance(i, dict) else i[rows]
+        for i in schedule])
+    print(f"11b one process: 2 events, 2 events with BN summed by event, rank 0's event "
+          f"alone: {time.perf_counter() - t:.1f} s; G's eval output for event 0 at a batch of "
+          f"40 vs within the batch of 80: max abs {both['batch_rounding']:.3e}", flush=True)
+    yardstick = phase11_gap(np, by_event, both)
+    print(phase11_line("yardstick (printed, not a bound), one process with BN summed by event "
+                       "vs at once", yardstick), flush=True)
+    return both, alone, yardstick
+
+
+def data_parallel_phase(np, ranks, singles):
+    """Phase 11b's checks: the two gloo ranks' results (``phase11_rank``)
+    against one process taking both events and, the control, one event
+    alone (``singles``, from ``phase11_singles``)."""
+    both, alone, yardstick = singles
+    for r, res in enumerate(ranks):
+        print(f"11b rank {r}: step {res['step_ms']:.1f} ms (collectives timed between "
+              f"synchronizations), B1 {res['launches']['B1']}, B2 {res['launches']['B2']} "
+              f"launches, peak {res['peak_gib']:.2f} GiB, gloo " + json.dumps(
+                  {k: {"calls": v["calls"], "ms": round(v["ms"], 1), "MB": round(v["MB"], 1)}
+                   for k, v in res["collectives"].items()}), flush=True)
+        if (res["launches"]["B1"], res["launches"]["B2"]) != (B1_PER_STEP, B2_PER_STEP):
+            raise SystemExit(f"11b rank {r}: B1/B2 launched {res['launches']}, expected "
+                             f"{(B1_PER_STEP, B2_PER_STEP)}")
+    differ = [k for k, v in ranks[0]["digest"].items()
+              if any(res["digest"].get(k) != v for res in ranks[1:])]
+    if differ or any(set(res["digest"]) != set(ranks[0]["digest"]) for res in ranks):
+        raise SystemExit(f"11b: the ranks' states differ at {differ[:5]} ({len(differ)} tensors)")
+    print(f"11b: the {PHASE11_RANKS} ranks' states are bit-equal ({len(ranks[0]['digest'])} "
+          "tensors and counts)", flush=True)
+    gap = phase11_gap(np, ranks[0], both)
+    print(phase11_line(f"{PHASE11_RANKS} ranks vs one process on both events", gap) + (
+        f" (bounds: metrics rtol {STEP_METRIC_RTOL}, max {STEP_GRAD_MAX}, D median "
+        f"{STEP_GRAD_MEDIAN}, G median {PHASE11_G_MEDIAN})"), flush=True)
+    if not phase11_within(gap):
+        raise SystemExit("11b: the data-parallel step disagrees with the single process")
+    control = phase11_gap(np, ranks[0], alone)
+    print(phase11_line("control, vs one process on rank 0's event alone (must break the "
+                       "bounds)", control), flush=True)
+    if phase11_within(control):
+        raise SystemExit("11b: the control is within the bounds")
+    ranks[0]["gap"], ranks[0]["yardstick"] = gap, yardstick
+    return ranks[0]
+
+
+def parallel_phase(torch, np):
+    """Phase 11: 11a through torchrun on NCCL; beside its resume, 11b's
+    single-process steps and its two gloo ranks' set-up (spawn, restore,
+    state broadcast); then the ranks' step, alone on the card."""
+    import multiprocessing
+    import tempfile
+
+    x, y, schedule = phase11_inputs(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pt")
+        torch.save({"x": x, "y": y, "schedule": schedule}, job)
+        ctx = multiprocessing.get_context("spawn")
+        go = ctx.Event()
+        procs = [ctx.Process(target=phase11_rank, args=(r, PHASE11_RANKS,
+                                                        os.path.join(tmp, "init"), job, tmp, go))
+                 for r in range(PHASE11_RANKS)]
+
+        def alongside():
+            for p in procs:
+                p.start()
+            return phase11_singles(torch, np, x, y, schedule)
+
+        try:
+            t0 = time.perf_counter()
+            entry_ms, singles = parallel_entry_point(np, alongside)
+            phase("11a torchrun NCCL, with 11b's single process and the ranks' set-up beside "
+                  "the resume", t0)
+            t0 = time.perf_counter()
+            go.set()
+            for p in procs:
+                p.join(400)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if [p.exitcode for p in procs] != [0] * PHASE11_RANKS:
+            raise SystemExit(f"11b: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PHASE11_RANKS)]
+    print(f"11b two gloo ranks on one card: {time.perf_counter() - t0:.1f} s from the signal "
+          "to step (one step, the state's digests, the results written)", flush=True)
+    rank0 = data_parallel_phase(np, ranks, singles)
+    phase("11b two gloo ranks", t0)
+    return entry_ms, rank0
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -1822,6 +2215,10 @@ def main():
     opt = options_phase(torch, np)
     phase("options at full width", t0)
 
+    t0 = time.perf_counter()
+    dp_entry_ms, dp_rank0 = parallel_phase(torch, np)
+    phase("data parallel", t0)
+
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
                            and r["dtype"] == "float32")
@@ -1839,6 +2236,7 @@ def main():
         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"], "library_ms": b1["library_ms"],
         "site": "D_SA f32 " + "x".join(map(str, b1["shape"])),
         "launches_driver": driver_launches["B1"], "launches_fid_call": ev["b1_per_call"],
+        "launches_dp_per_rank": dp_rank0["launches"]["B1"],
         "bf16": {"max_abs_err": b1h["max_abs_err_o"], "ms": b1h["ms"],
                  "plain_ms": b1h["plain_ms"], "bound_ms": b1h["bound_ms"],
                  "bound_by": b1h["bound_by"], "library_ms": b1h["library_ms"]},
@@ -1852,6 +2250,7 @@ def main():
         "bound_by": b2["bound_by"], "library_ms": b2["library_ms"],
         "site": "D_SA f32 " + "x".join(map(str, b2["shape"])),
         "launches_driver": driver_launches["B2"],
+        "launches_dp_per_rank": dp_rank0["launches"]["B2"],
         "bf16": {"max_abs_err": max(b2h["max_abs_err_dq"], b2h["max_abs_err_dk"],
                                     b2h["max_abs_err_dv"]),
                  "ms": b2h["ms"], "plain_ms": b2h["plain_ms"], "bound_ms": b2h["bound_ms"],
@@ -1894,6 +2293,9 @@ def main():
               f"{n} {sum(opt[n][1]) / len(opt[n][1]):.1f} / {sum(opt[n][2]) / len(opt[n][2]):.1f}"
               for n in ("10a PEGAN", "10b reference parity"))
           + f"; 10c Proj f32 {sum(opt['10c Proj']) / len(opt['10c Proj']):.1f}", flush=True)
+    print(f"phase 11: torchrun --mesh 1 bf16 step {dp_entry_ms:.1f} ms (phase 7's driver step "
+          f"{driver_ms:.1f} ms); 11b rank 0 f32 step over gloo {dp_rank0['step_ms']:.1f} ms, "
+          f"peak {dp_rank0['peak_gib']:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

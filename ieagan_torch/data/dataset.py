@@ -151,11 +151,13 @@ class ImageEventsDataset:
 
 def load_dataset(data_path: str, num_workers: int = 8, shuffle: bool = True,
                  seed: int | None = None, events_per_batch: int = 1,
-                 raw_uint8: bool = False):
+                 raw_uint8: bool = False, process_index: int = 0, process_count: int = 1):
     """Reference-parity entry point (utils/dataloader.py:56-81) returning an
     iterable of (images, labels) event batches; set the loader's ``device``
-    to have them copied there in its producer thread."""
+    to have them copied there in its producer thread. With several processes
+    each loads its share of every batch (``EventLoader``)."""
     from ieagan_torch.data.pipeline import EventLoader
     ds = ImageEventsDataset(data_path, seed=seed, raw_uint8=raw_uint8)
     return EventLoader(ds, num_workers=num_workers, shuffle=shuffle, seed=seed,
-                       events_per_batch=events_per_batch)
+                       events_per_batch=events_per_batch, process_index=process_index,
+                       process_count=process_count)

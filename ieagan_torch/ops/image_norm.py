@@ -45,16 +45,21 @@ def generate_postprocess(imgs, threshold: float = -0.26):
 
 
 def device_event_transform(raw_u8, generator: torch.Generator | None = None,
-                           noise_scale: float = 4e-3, pad: int = 3):
+                           noise_scale: float = 4e-3, pad: int = 3,
+                           rows: tuple[int, int] | None = None):
     """Raw uint8 sensor images (B, H, W) -> (B, H+2*pad, W, 1) float32 in
     [-1, 1] on their device (twin of ``ieagan_tpu/ops/image_norm.py:48-65``
     and of ``data/dataset.py::event_transform_stack``): pad, lognorm,
     [-1, 1], plus U[0, 2*noise_scale) pixel noise drawn from ``generator``
     (the host chain draws it from numpy; same distribution). With uint8
-    batches the host uploads a quarter of the bytes."""
+    batches the host uploads a quarter of the bytes. ``rows=(start,
+    total)``: the batch is rows ``start..start+B`` of a global batch of
+    ``total``, and the noise is drawn for the global batch and cut to them
+    (data parallel, ``parallel/sharding.py``)."""
     x = torch.nn.functional.pad(raw_u8.float(), (0, 0, pad, pad))
     out = 2.0 * (torch.log(x + 1.0) / _LOG256) - 1.0
     if noise_scale:
-        out = out + (2.0 * noise_scale) * torch.rand(out.shape, generator=generator,
-                                                     device=out.device)
+        start, total = rows or (0, out.shape[0])
+        noise = torch.rand((total, *out.shape[1:]), generator=generator, device=out.device)
+        out = out + (2.0 * noise_scale) * noise[start:start + out.shape[0]]
     return out[..., None]

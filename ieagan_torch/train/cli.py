@@ -7,6 +7,10 @@ override the JSON ``--config`` (or ``./config.json``), which overrides the
 defaults: the reference's argparse-SUPPRESS and dict.update merge. It trains
 on the GPU; ``IEAGAN_PLATFORM=cpu`` asks for the CPU, as it does for
 ``train.py``, and without it a machine with no CUDA device is refused.
+
+Several GPUs, one process each: ``torchrun --nproc-per-node N
+train_torch.py ... --mesh N`` (NCCL; gloo on the CPU). ``--mesh`` may be
+left out under such a launcher: every process then joins the data axis.
 """
 
 from __future__ import annotations
@@ -81,6 +85,8 @@ def platform_device() -> str:
 
 
 def main(argv=None):
+    """Parse the flags, join the launcher's process group (a no-op for one
+    process), make the run dirs on rank 0 and train (``train.py:103-118``)."""
     try:
         sys.stdout.reconfigure(line_buffering=True)
     except (AttributeError, ValueError):
@@ -88,11 +94,28 @@ def main(argv=None):
     config = load_cli_config(argv)
     if "outputroot" not in config:
         raise SystemExit("the --outputroot flag is required")
+    from ieagan_torch.parallel import distributed
     from ieagan_torch.train.driver import resolve_device, run
     from ieagan_torch.utils.run_dirs import initialize_directories
+    platform = platform_device()
     try:
-        device = resolve_device(platform_device())
+        device = resolve_device(platform)
     except RuntimeError as e:
         raise SystemExit(f"train_torch: {e}") from None
-    initialize_directories(config)
-    return run(config, device=device)
+    # ranks wait in a collective while rank 0 runs the FID test: the group's
+    # timeout outlasts the test's own
+    distributed.initialize(device_type=platform,
+                           timeout_s=float(config.get("fid_subprocess_timeout", 3600)) + 1800)
+    try:
+        error = None
+        if distributed.rank() == 0:
+            try:
+                initialize_directories(config)
+            except RuntimeError as e:  # an existing run dir: every rank stops
+                error = str(e)
+        error = distributed.broadcast_object(error)
+        if error is not None:
+            raise SystemExit(f"train_torch: {error}")
+        return run(config, device=distributed.local_device(platform))
+    finally:
+        distributed.shutdown()

@@ -19,7 +19,12 @@ logs FID (and KID and physics extras) to the metrics stream, keeps invalid
 FIDs out of ``best_FID``, and writes ``best<n>`` checkpoints rotating over
 ``num_best_copies``.
 
-Not ported yet (ROADMAP A10): the mesh path (``mesh`` raises). The JAX
+Data parallel (the JAX driver's mesh path, ``ieagan_tpu/train/driver.py:
+219-256``): with ``mesh`` set, or under a launcher with several processes,
+one process per GPU trains the sharded step (``parallel/sharding.py``) on
+its rows of every batch; rank 0's state is broadcast first, and rank 0 alone
+writes logs, metadata, checkpoints and samples and runs the FID test while
+the others wait. Tensor parallelism (a ``model`` axis) is refused. The JAX
 driver's retries on ``RESOURCE_EXHAUSTED`` exist for a network-attached TPU
 and have no twin.
 """
@@ -41,12 +46,15 @@ import numpy as np
 import torch
 
 from ieagan_torch.core.config import DEFAULT_CONFIG
+from ieagan_torch.core.mesh import make_mesh, parse_mesh_spec
 from ieagan_torch.core.precision import get_policy
 from ieagan_torch.eval import fid as fid_eval
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
-from ieagan_torch.ops.image_norm import denorm, device_event_transform
-from ieagan_torch.train.step import init_train_state, make_train_step
+from ieagan_torch.ops.image_norm import denorm
+from ieagan_torch.parallel import distributed
+from ieagan_torch.parallel.sharding import make_sharded_train_step, place_state
+from ieagan_torch.train.step import init_train_state
 from ieagan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ieagan_torch.utils.logging import Logger, MetricsLogger
 from ieagan_torch.utils.plot import plot_imgs, plot_sim_heatmap, save_gray, tile
@@ -62,6 +70,26 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device: the port trains on the GPU unless asked for the "
                            "CPU (train_torch.py: IEAGAN_PLATFORM=cpu; run(config, device='cpu'))")
     return device
+
+
+def build_mesh(config: dict):
+    """The run's data axis, or None for one process: the ``mesh`` key
+    (``{"data": N}``, ``"N"``, ...; a ``model`` axis is refused), else every
+    process of a launch with several (the JAX driver's auto-mesh). The
+    events of a batch must divide over it."""
+    epb = int(config.get("events_per_batch", 1))
+    world = distributed.world_size()
+    if config.get("mesh"):
+        n_data, n_model = parse_mesh_spec(config["mesh"])
+        mesh = make_mesh(n_data, n_model)
+    elif world > 1:
+        mesh = make_mesh(world)
+    else:
+        return None
+    if epb % mesh.n_data:
+        raise ValueError(f"events_per_batch={epb} must divide over the mesh data axis "
+                         f"({mesh.n_data})")
+    return mesh
 
 
 def get_singular_values(module: torch.nn.Module, prefix: str) -> dict:
@@ -221,8 +249,10 @@ def run(config: dict, device="cuda"):
     run dir must exist (``utils/run_dirs.py::initialize_directories``)."""
     config = dict(DEFAULT_CONFIG, **config)
     device = resolve_device(device)
-    if config.get("mesh"):
-        raise NotImplementedError("the mesh path (several GPUs) is not ported yet (ROADMAP A10)")
+    mesh = build_mesh(config)
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
+    is_main = rank == 0
+    say = print if is_main else (lambda *args, **kwargs: None)
     seed = int(config["seed"])
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -234,11 +264,13 @@ def run(config: dict, device="cuda"):
     policy = get_policy(config.get("compute_dtype", "bfloat16"))
     with torch.device(device):
         G, D = Generator.from_config(config), Discriminator.from_config(config)
-    print("init: device param init...", flush=True)
+    say("init: device param init...", flush=True)
     state = init_train_state(G, D, config, rng, compute_dtype=policy.compute_dtype)
-    print(f"Param count for G: {sum(p.numel() for p in G.parameters())}")
-    print(f"Param count for D: {sum(p.numel() for p in D.parameters())}")
-    print(f"device: {device}, compute dtype {policy.compute_dtype}, events/batch: {epb}")
+    say(f"Param count for G: {sum(p.numel() for p in G.parameters())}")
+    say(f"Param count for D: {sum(p.numel() for p in D.parameters())}")
+    say(f"device: {device}, compute dtype {policy.compute_dtype}, events/batch: {epb}"
+        + ("" if mesh is None else f", mesh {mesh.shape} over {n_ranks} processes "
+           f"({distributed.backend() or 'no process group'})"))
 
     state_dict = {"itr": 0, "epoch": 0, "save_num": 0, "save_best_num": 0,
                   "best_FID": 999999.0}
@@ -246,13 +278,13 @@ def run(config: dict, device="cuda"):
     if config.get("resume"):
         tag = latest_checkpoint(weights_dir)
         if tag:
-            print(f"Resuming from checkpoint '{tag}'")
+            say(f"Resuming from checkpoint '{tag}'")
             state, state_dict = load_checkpoint(weights_dir, state, tag,
                                                 load_optim=bool(config.get("load_optim", True)))
-            print(f"checkpoint '{tag}' loaded (itr {state_dict.get('itr')})", flush=True)
+            say(f"checkpoint '{tag}' loaded (itr {state_dict.get('itr')})", flush=True)
             if float(state_dict.get("best_FID", 0.0)) < 0:
                 # self-heal checkpoints poisoned by an invalid (negative) FID
-                print(f"resetting invalid best_FID {state_dict['best_FID']} from checkpoint")
+                say(f"resetting invalid best_FID {state_dict['best_FID']} from checkpoint")
                 state_dict["best_FID"] = 999999.0
             # A copy<N> written before that itr's eval carries a stale
             # best_FID threshold; the best tags' own state_dicts record their
@@ -267,24 +299,39 @@ def run(config: dict, device="cuda"):
                 if v > 0:
                     best_fids.append(v)
             if best_fids and min(best_fids) < float(state_dict["best_FID"]):
-                print(f"best_FID threshold floored {state_dict['best_FID']:.2f} -> "
-                      f"{min(best_fids):.2f} (existing best tags)")
+                say(f"best_FID threshold floored {state_dict['best_FID']:.2f} -> "
+                    f"{min(best_fids):.2f} (existing best tags)")
                 state_dict["best_FID"] = min(best_fids)
 
-    train_log = Logger(config)
-    metrics_log = MetricsLogger(config)
-    write_metadata(config, state_dict)
+    # every rank steps from rank 0's state (a resume loaded on each, or the
+    # same-seed init)
+    state = place_state(state, mesh)
+    # log sinks and run files: rank 0 alone
+    train_log = Logger(config) if is_main else None
+    metrics_log = MetricsLogger(config) if is_main else None
+    if is_main:
+        write_metadata(config, state_dict)
+
+    def on_main(fn, *args):
+        """``fn`` on rank 0 while the others wait; then every rank takes rank
+        0's bookkeeping (save and best-FID counters)."""
+        if is_main:
+            fn(*args)
+        state_dict.update(distributed.broadcast_object(state_dict))
 
     use_device_transform = False
+    epb_local = max(1, epb) // n_ranks
     if config.get("debug") or not config.get("dataroot"):
-        print("debug/synthetic data path")
+        say("debug/synthetic data path")
         steps_per_epoch = int(config.get("debug_batches", 8))
-        # synthetic batches are made once on the device and cycled
+        # synthetic batches are made once on the device and cycled; each rank
+        # makes its own events (seed + i + 1000 * rank, as the JAX driver)
         h, w = int(config["resolution"]), int(config["resolution"]) * int(config["H_base"])
-        labels = torch.arange(es, device=device).repeat(max(1, epb))
+        labels = torch.arange(es, device=device).repeat(epb_local)
         dbg_batches = [
-            (torch.rand((es * max(1, epb), h, w, 1), device=device,
-                        generator=torch.Generator(device=device).manual_seed(seed + i)) * 2 - 1,
+            (torch.rand((es * epb_local, h, w, 1), device=device,
+                        generator=torch.Generator(device=device).manual_seed(
+                            seed + i + 1000 * rank)) * 2 - 1,
              labels)
             for i in range(min(steps_per_epoch, 4))]
 
@@ -296,7 +343,8 @@ def run(config: dict, device="cuda"):
         use_device_transform = bool(config.get("device_transform", False))
         loader = load_dataset(config["dataroot"], num_workers=int(config["num_workers"]),
                               shuffle=bool(config["shuffle"]), seed=seed,
-                              events_per_batch=epb, raw_uint8=use_device_transform)
+                              events_per_batch=epb, raw_uint8=use_device_transform,
+                              process_index=rank, process_count=n_ranks)
         # resume: continue the shuffle sequence at the resumed epoch
         loader.set_epoch(int(state_dict.get("epoch", 0)))
         loader.device = device  # uploads in the loader's producer thread
@@ -304,9 +352,12 @@ def run(config: dict, device="cuda"):
         steps_per_epoch = len(loader)
 
     itr = int(state.itr)
-    train_step = make_train_step(G, D, config, steps_per_epoch)
+    # one step for one process or many: with the uint8 transform it runs
+    # inside, its noise drawn for the global batch
+    train_step = make_sharded_train_step(G, D, config, mesh, steps_per_epoch=steps_per_epoch,
+                                         device_transform=use_device_transform)
 
-    print("entering train loop", flush=True)
+    say("entering train loop", flush=True)
     t_start = time.time()
     t_last_log = t_start
     stop_after = int(config.get("stop_after", 10 ** 9))
@@ -318,9 +369,7 @@ def run(config: dict, device="cuda"):
         for x, y in loader_factory():
             itr += 1
             state_dict["itr"] = itr
-            if use_device_transform:
-                x = device_event_transform(x, rng)
-            if trace_dir and itr == trace_start:
+            if trace_dir and is_main and itr == trace_start:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -337,7 +386,7 @@ def run(config: dict, device="cuda"):
                 profiler = None
                 print(f"profiler trace written to {trace}")
 
-            if itr % int(config["log_interval"]) == 0:
+            if is_main and itr % int(config["log_interval"]) == 0:
                 now = time.time()
                 metrics_host = {k: metrics[k] for k in sorted(metrics) if not k.startswith("_")}
                 sec_per_itr = (now - t_last_log) / int(config["log_interval"])
@@ -346,16 +395,16 @@ def run(config: dict, device="cuda"):
                     f"{k}={v:.4f}" for k, v in metrics_host.items()))
                 train_log.log(itr, sec_per_itr=sec_per_itr, **metrics_host)
 
-            if itr % int(config["sv_log_interval"]) == 0:
+            if is_main and itr % int(config["sv_log_interval"]) == 0:
                 svs = {**get_singular_values(state.G, "G"), **get_singular_values(state.D, "D")}
                 if svs:
                     train_log.log(itr, **svs)
 
             if itr % int(config["save_every"]) == 0:
-                save_and_sample(state, state_dict, config, runpath)
+                on_main(save_and_sample, state, state_dict, config, runpath)
 
             if itr % int(config["test_every"]) == 0:
-                run_test(state, state_dict, config, metrics_log)
+                on_main(run_test, state, state_dict, config, metrics_log)
 
             if itr >= stop_after:
                 break
@@ -363,7 +412,7 @@ def run(config: dict, device="cuda"):
         if itr >= stop_after:
             break
     # final checkpoint
-    save_and_sample(state, state_dict, config, runpath)
+    on_main(save_and_sample, state, state_dict, config, runpath)
     return state, state_dict
 
 

@@ -51,6 +51,28 @@ parameters, their gradients, Adam and the EMA are f32. The learning-rate
 schedule belongs to the step, as the JAX package's scheduled optimizer does,
 and is handed to each optimizer step; the state's optimizers keep the moments
 and counts.
+
+Data parallel (``mesh``, ``core/mesh.py``; ``parallel/sharding.py`` builds
+it): N ranks of b images each compute what the step computes on the global
+batch of N·b, as the JAX package's step does under its sharded jit:
+
+  * every draw is made at the global batch's shape from a generator in the
+    same state on every rank (or taken from ``draw_schedule`` at that
+    shape), and each rank keeps its rows ``[r·b, (r+1)·b)``;
+  * batch norm takes the global batch's moments (``ops/norm.py``);
+  * the labels, D's embeddings and proxies are gathered in rank order before
+    ``make_mask``, 2C, uniformity and IEA, which every rank computes on the
+    whole batch; the gather's backward sums their gradient over the ranks;
+  * the mean-reduced losses (hinge, the consistency l2) stay per rank;
+  * each network's gradients are averaged over the ranks after the
+    zero-fill and before ortho-reg and Adam, so every rank takes the same
+    update from the gradient of the global loss, the mean of the ranks'
+    losses (hinge terms: the mean of the ranks' means; gathered terms: every
+    rank's copy of the one value);
+  * the metrics are the ranks' means, the global batch's values.
+
+Under ``rrm_full_batch_sequence`` the RRMs' sequence is the whole batch,
+which a rank does not hold; N > 1 refuses it (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -68,6 +90,9 @@ from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import (cr_diff_augment, diff_augment, sample_cr_draws,
                                        sample_diff_aug_draws)
+from ieagan_torch.ops.norm import global_batch_moments
+from ieagan_torch.parallel.collectives import (all_gather_rows, all_reduce_grads,
+                                               all_reduce_sum)
 from ieagan_torch.train.optim import lr_schedules, make_optimizers
 from ieagan_torch.train.ortho import apply_ortho_reg
 from ieagan_torch.utils.checkpoint import load_checkpoint
@@ -140,7 +165,8 @@ def _on(device, item, dtype=None):
 
 
 def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoch: int = 0,
-                    *, draw_schedule: Iterable | None = None, capture_grads: bool = False):
+                    *, draw_schedule: Iterable | None = None, capture_grads: bool = False,
+                    mesh=None):
     """The step ``train_step(state, x, y, generator) -> metrics`` for a state
     that holds ``G`` and ``D``, in the state's compute type.
 
@@ -152,7 +178,10 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     module docstring); ``capture_grads`` adds the gradients after
     ortho-reg, by parameter name, under ``_grads_D`` and ``_grads_G``.
     ``steps_per_epoch`` sets the learning-rate schedule's epochs (constant
-    while 0, as the JAX package's step).
+    while 0, as the JAX package's step). With a ``mesh`` of N ranks, x and y
+    are this rank's rows of the global batch, every draw (scheduled ones too)
+    is at the global batch's shape, and the metrics and updates are the
+    global batch's (module docstring).
     """
     config = dict(DEFAULT_CONFIG, **config)
     strategy = config["conditional_strategy"]
@@ -184,20 +213,32 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     ema_start = int(config["ema_start"])
     g_lr, d_lr = lr_schedules(config, steps_per_epoch)
     schedule = iter(draw_schedule) if draw_schedule is not None else None
+    n_ranks = 1 if mesh is None else mesh.n_data
+    if n_ranks > 1 and bool(config.get("rrm_full_batch_sequence", False)):
+        raise NotImplementedError("rrm_full_batch_sequence with several ranks: the RRMs' "
+                                  "sequence is the global batch (ROADMAP A10)")
+    gather = lambda t: all_gather_rows(t, mesh)
 
     def draw(kind, generator, x):
         """A draw for the batch ``x``: the images' own dtype sets the
-        granularity of their DiffAugment draws."""
-        b, h, w, _ = x.shape
+        granularity of their DiffAugment draws. Drawn at the global batch's
+        shape; this rank's rows."""
+        n, h, w, _ = x.shape
         if schedule is not None:
-            return _on(x.device, next(schedule), torch.float32 if kind in ("z", "rdof") else None)
-        if kind == "z":
-            return torch.randn((b, dim_z), generator=generator, device=x.device) * z_std
-        if kind == "rdof":
-            return torch.randn((b, rdof_dim), generator=generator, device=x.device)
-        if kind == "cr":
-            return sample_cr_draws(generator, b, h, w, device=x.device)
-        return sample_diff_aug_draws(generator, b, h, w, policy, device=x.device, dtype=x.dtype)
+            out = _on(x.device, next(schedule), torch.float32 if kind in ("z", "rdof") else None)
+        elif kind == "z":
+            out = torch.randn((n * n_ranks, dim_z), generator=generator, device=x.device) * z_std
+        elif kind == "rdof":
+            out = torch.randn((n * n_ranks, rdof_dim), generator=generator, device=x.device)
+        elif kind == "cr":
+            out = sample_cr_draws(generator, n * n_ranks, h, w, device=x.device)
+        else:
+            out = sample_diff_aug_draws(generator, n * n_ranks, h, w, policy, device=x.device,
+                                        dtype=x.dtype)
+        if n_ranks == 1:
+            return out
+        rows = mesh.rows(n)
+        return {k: v[rows] for k, v in out.items()} if isinstance(out, dict) else out[rows]
 
     def d_forward(x, y):
         """D's ``(proxy, embed, score (B,))``; Proj gives the score alone."""
@@ -218,19 +259,34 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
         return {n: p.grad.detach().clone() for n, p in module.named_parameters()}
 
     def finish_grads(module, strength, blacklist=()):
-        """Ortho-reg on the gradients; a parameter the loss did not reach gets
-        a zero gradient, since optax updates every leaf."""
-        apply_ortho_reg(module, strength, blacklist)
+        """A parameter the loss did not reach gets a zero gradient, since
+        optax updates every leaf; the gradients are averaged over the ranks,
+        then ortho-reg is added (to a zero gradient it is the term alone)."""
         for p in module.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_grads(module, mesh)
+        apply_ortho_reg(module, strength, blacklist)
+
+    def global_means(mets):
+        """The ranks' mean of each metric (one all-reduce)."""
+        if n_ranks == 1 or not mets:
+            return mets
+        names = list(mets)
+        vals = all_reduce_sum(torch.stack([mets[k].detach().float() for k in names]), mesh)
+        return dict(zip(names, vals / n_ranks))
 
     def train_step(state: TrainState, x, y, generator: torch.Generator | None = None) -> dict:
         if state.G is not G or state.D is not D:
             raise ValueError("this train step was made for other G and D modules")
+        with global_batch_moments(mesh):
+            return step_body(state, x, y, generator)
+
+    def step_body(state, x, y, generator):
         compute_dtype = state.compute_dtype
         metrics = {}
-        mask = losses.make_mask(y, n_classes)
+        y_all = gather(y)
+        mask = losses.make_mask(y_all, n_classes)
         G.train()
         D.train()
 
@@ -263,7 +319,9 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
                 d_loss = loss_real + loss_fake
                 mets = {"D_loss_real": loss_real, "D_loss_fake": loss_fake}
                 if contra_on:
-                    d_loss = d_loss + contra_lambda * contra(embed_r, proxy_r, mask, y)
+                    embed_r_all = gather(embed_r)
+                    d_loss = d_loss + contra_lambda * contra(embed_r_all, gather(proxy_r), mask,
+                                                             y_all)
                 if con_reg:  # a third D pass (reference: train_fns.py:57-66)
                     x_aug = cr_diff_augment(x, draw("cr", generator, x)).to(compute_dtype)
                     _, embed_ra, score_ra = d_forward(x_aug, y)
@@ -272,16 +330,16 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
                         consistency = consistency + losses.l2_loss(embed_r, embed_ra)
                     d_loss = d_loss + cr_lambda * consistency
                 if contra_on and unif_on:
-                    u = losses.unif_loss(embed_r)
+                    u = losses.unif_loss(embed_r_all)
                     d_loss = d_loss + unif_lambda * u
                     mets["unif_loss_d"] = u
                 (d_loss / float(num_D_acc)).backward()
-                embed_real = None if embed_r is None else embed_r.detach()
+                embed_real = embed_r_all.detach() if contra_on else None
             finish_grads(D, d_ortho)
             if capture_grads:
                 metrics["_grads_D"] = capture(D)
             state.opt_D.step(d_lr)
-            metrics.update(mets)
+            metrics.update(global_means(mets))
 
         # ---------------- G phase ----------------
         D.requires_grad_(False)
@@ -296,7 +354,8 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
             g_loss = losses.loss_hinge_gen(score_f)
             mets = {}
             if contra_on:
-                g_loss = g_loss + contra_lambda * contra(embed_f, proxy_f, mask, y)
+                embed_f = gather(embed_f)
+                g_loss = g_loss + contra_lambda * contra(embed_f, gather(proxy_f), mask, y_all)
             if contra_on and iea_on:
                 il = losses.iea_loss(embed_f, embed_real)
                 g_loss = g_loss + iea_lambda * il
@@ -313,7 +372,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
             metrics["_grads_G"] = capture(G)
         if not skip_g_update:
             state.opt_G.step(g_lr)
-        metrics.update(mets)
+        metrics.update(global_means(mets))
 
         # ---------------- EMA ----------------
         state.itr += 1

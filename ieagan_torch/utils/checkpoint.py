@@ -7,8 +7,11 @@ flax-msgpack file per component (``G_<tag>``, ``D_<tag>``, ``G_optim_<tag>``,
 run's bookkeeping and ``itr``. Both packages read and write the same files:
 the port converts its modules and optimizers with ``models/convert.py`` and
 writes with its own msgpack writer, each file atomically (temporary file,
-then rename). The JAX package's device-to-host packing (``_to_host``,
-``utils/transfer.py``) exists for a network-attached TPU and has no twin.
+then rename). Under data parallelism every rank holds the same state: the
+driver calls ``save_checkpoint`` on rank 0 alone and nothing is gathered
+(``ieagan_tpu/utils/checkpoint.py:144``); every rank may read. The JAX package's device-to-host
+packing (``_to_host``, ``utils/transfer.py``) exists for a network-attached
+TPU and has no twin.
 """
 
 from __future__ import annotations

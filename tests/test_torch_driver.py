@@ -47,6 +47,7 @@ from ieagan_torch.utils.run_dirs import initialize_directories
 from tests.helpers import tiny_config
 from tests.test_torch_eval import PooledExtractor, few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_losses import jax_draws
+from tests.torch_ranks import free_port, run_cli_rank, spawn_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = dict(debug=True, debug_batches=3, num_epochs=1, log_interval=1, sv_log_interval=2,
@@ -209,12 +210,16 @@ def test_save_event_grid_matches_jax(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
-    """The mesh path is not ported; a run that reaches ``test_every`` is no
-    longer refused (``test_fid_test_in_process``)."""
+    """A mesh with a model axis (tensor parallelism) is not ported; a data
+    axis wider than the processes launched is refused before any step. The
+    data-parallel mesh itself trains (``test_two_rank_driver_run``)."""
     cfg = tiny_config(outputroot=str(tmp_path), run_name="r", **dict(RUN, test_every=2))
     initialize_directories(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        run(dict(cfg, mesh="2x2"), device="cpu")
+    with pytest.raises(ValueError, match="world of 1"):
         run(dict(cfg, mesh="2"), device="cpu")
+    assert not os.listdir(tmp_path / "r" / "weights")
 
 
 FID_RUN = dict(fid_dataset_name="tinyfid", num_incep_images=8, fid_gen_chunks=1)
@@ -312,6 +317,55 @@ def test_fid_subprocess_reads_a_jax_run(runs, tmp_path, monkeypatch, capsys):
     assert (tmp_path / "jax" / "physics_copy3_2ev.pickle").exists()
     assert (tmp_path / "jax" / "weights" / "G_ema_best0.msgpack").exists()
     assert not (tmp_path / "jax" / "fid_subprocess.pid").exists()
+
+
+def _launch_two_ranks(tmp_path, cfg, name):
+    """``train_torch.py --config <cfg>`` in two ranks as ``torchrun
+    --nproc-per-node 2`` starts them (gloo on the CPU); returns each rank's
+    output and its state's digest and bookkeeping."""
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    out = tmp_path / name
+    out.mkdir()
+    argv = ["--config", str(path), "--outputroot", str(tmp_path), "--run-name", "dp"]
+    spawn_ranks(run_cli_rank, 2, (free_port(), argv,
+                                  {"IEAGAN_STATS_DIR": os.environ["IEAGAN_STATS_DIR"]}, str(out)))
+    return ([(out / f"rank{r}.log").read_text() for r in (0, 1)],
+            [torch.load(out / f"rank{r}.pt", weights_only=False) for r in (0, 1)])
+
+
+def test_two_rank_driver_run(tmp_path, monkeypatch):
+    """The CLI under two ranks with ``--mesh 2``: three steps with a save
+    and rank 0's in-process FID test at itr 2 and the final save at 3, then
+    a resume to 4. Rank 0 alone writes the logs (one line a step), the
+    metrics (one FID record) and the checkpoints; both ranks end every run
+    with bit-equal states and rank 0's bookkeeping."""
+    monkeypatch.setenv("IEAGAN_STATS_DIR", str(tmp_path / "stats"))
+    _mint_stats(tmp_path, PooledExtractor())
+    cfg = tiny_config(fid_subprocess=False, mesh="2", **dict(RUN, save_every=2, test_every=2),
+                      **FID_RUN)
+    logs, ranks = _launch_two_ranks(tmp_path, cfg, "first")
+    run_dir = tmp_path / "dp"
+    assert ranks[0]["digest"] == ranks[1]["digest"] and ranks[0]["digest"]["itr"] == 3
+    assert ranks[0]["state_dict"] == ranks[1]["state_dict"]
+    assert "mesh {'data': 2, 'model': 1} over 2 processes" in logs[0], logs[0][-2000:]
+    assert "checkpoint copy2 saved" in logs[0] and "The FID score is" in logs[0]
+    assert "checkpoint" not in logs[1] and "FID" not in logs[1], logs[1]
+    (rec,) = _fid_records(run_dir)
+    assert rec["itr"] == 2 and np.isfinite(rec["FID"])
+    assert ranks[1]["state_dict"]["best_FID"] == rec["FID"]
+    assert len((run_dir / "logs" / "G_loss.log").read_text().splitlines()) == 3
+    weights = run_dir / "weights"
+    for tag in ("copy2", "copy3", "best0"):
+        assert (weights / f"D_optim_{tag}.msgpack").exists(), tag
+
+    logs, ranks = _launch_two_ranks(tmp_path, dict(cfg, resume=True, num_epochs=2, stop_after=4),
+                                    "resume")
+    assert "Resuming from checkpoint 'copy3'" in logs[0]
+    assert ranks[0]["digest"] == ranks[1]["digest"] and ranks[0]["digest"]["itr"] == 4
+    assert ranks[0]["digest"]["opt_D.counts"] == (4, 4)
+    assert len((run_dir / "logs" / "G_loss.log").read_text().splitlines()) == 4
+    assert (weights / "G_ema_copy4.msgpack").exists()
 
 
 def test_refuses_existing_run_dir(runs):

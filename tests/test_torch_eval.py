@@ -31,6 +31,7 @@ from ieagan_torch.eval.resize import pil_resize_batch, resize_single_channel
 from ieagan_torch.models.convert import generator_state_to_flax
 from ieagan_torch.models.generator import Generator
 from tests.helpers import tiny_config
+from tests.torch_ranks import PooledExtractor  # the 16-d stand-in for Inception
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -163,18 +164,6 @@ def test_make_custom_stats_matches_jax(tmp_path, monkeypatch, extractors):
     c = fid.get_folder_features(str(folder), port, mode="clean", resize_on_device=True)
     assert a.shape == b.shape == (3, 2048) and np.abs(a - b).max() > 1e-6
     assert np.abs(a - c).max() < 1e-4 * np.abs(a).max()
-
-
-class PooledExtractor:
-    """A 16-d stand-in for Inception (4x4 average-pooled images): the FID
-    pipeline around the extractor, without a 2048-d sqrtm per FID."""
-    device = torch.device("cpu")
-
-    def features(self, images):
-        return torch.nn.functional.adaptive_avg_pool2d(images[:, :1], 4).flatten(1)
-
-    def __call__(self, images):
-        return self.features(torch.as_tensor(images)).numpy()
 
 
 def test_compute_fid_and_kid_against_tmp_stats(tmp_path, monkeypatch):
