@@ -34,7 +34,9 @@ Phases, each timed on a line of its own:
    [-1, 1], as the JAX driver's debug batch); finite metrics, weights that
    moved, spectral norms logged, B1 and B2 launches per step, the EMA
    update, the fused step against the plain-attention step from the same
-   state and draws, and the time per step;
+   state and draws, and the time per step; then D and its Adam state after
+   the steps through the reference PyTorch layout (a ``.pth``) and back,
+   bit for bit;
 6. golden step: the first step from ``copy16000`` on the golden inputs and
    draws against the JAX package's numbers in
    ``ieagan_torch/train/golden_step_copy16000.json``;
@@ -94,7 +96,21 @@ Phases, each timed on a line of its own:
    yardstick printed beside it, one process with its batch-norm sums taken
    event by event), every rank's state bit-equal, a control on rank 0's
    event alone that must break the bounds; per rank B1/B2 launches, gloo
-   calls, ms and MB, peak memory.
+   calls, ms and MB, peak memory; (c) on the same two ranks, phase 10b's
+   reference-parity configuration from its random init, the full-batch RRM
+   sequences now spanning both ranks (160 and 80), against one process
+   taking both events (11b's bounds), the ranks' states bit-equal, launches
+   by site.
+12. activation recompute: (a) the golden step of phase 6 with
+   ``remat=True``; phase 5's first step with ``remat=True`` against phase
+   5's own (G's buffers bit-equal, gradients within the fused-vs-plain
+   bounds); a pair of steps without and with recompute under cuDNN's
+   deterministic algorithms, every state tensor bit-equal; (b) the driver's
+   bf16 step at the flagship widths from a random init, three steps each at
+   3 events without recompute, with ``True``, ``"wide"`` and
+   ``remat_D=True``, and at 1 event with ``True``: peak memory, ms per step,
+   B1/B2 launches per step (those of phase 5: D's attention is in no
+   segment, and the flagship's G has none).
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -118,7 +134,9 @@ CHECKPOINT = os.path.join(ROOT, "artifacts", "flagship_r4b")
 # phase 10a, has the same shape). RR_Dproxy is D's proxy RRM (RRM_prx_D: 4
 # heads of 256, the kernels' 256 instance) at one event and, as concat mode
 # with the full-batch sequence gives it (phase 10b), at one sequence of 80,
-# where RR_D runs at 80 too. ODD, WIDE and ODD256 are no site of the model:
+# where RR_D runs at 80 too, and at one sequence of 160, as two ranks of one
+# event each give them (phase 11c: the ranks' global batch of [fake; real]
+# pairs). ODD, WIDE and ODD256 are no site of the model:
 # widths that are padded inside the kernels ((5, 7) -> (32, 32), (100, 48) ->
 # (128, 64), (200, 130) -> (256, 256), whose second column tile holds two of
 # dv's columns), ragged lengths, and rows that are not 16-byte aligned (ODD
@@ -134,8 +152,10 @@ SITES = [
     ("RR_Dproxy", 4, 80, 80, 256, 256, 256 ** -0.5),
     ("RR_D", 4, 80, 80, 128, 128, 128 ** -0.5),
     ("ODD256", 3, 77, 45, 200, 130, 0.3),
+    ("RR_D", 4, 160, 160, 128, 128, 128 ** -0.5),
+    ("RR_Dproxy", 4, 160, 160, 256, 256, 256 ** -0.5),
 ]
-BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9)]
+BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11)]
 # |kernel - plain| <= ATOL + RTOL * |plain|. f32: scores of up to 128 products
 # at |s| up to ~20 (scale 1 at D_SA) carry ~1e-6 relative rounding that exp
 # amplifies; 1e-4 bounds it. bf16: o is rounded to bf16 on both sides from
@@ -243,6 +263,143 @@ BF16_CHECKS = ("metrics", "G cosine", "D norms", "D cosine")
 BF16_METRIC_RTOL, BF16_METRIC_ATOL = 0.08, 1e-3
 BF16_D_NORM_RTOL = 0.15
 BF16_COS_MEDIAN_MIN = {"G": 0.2, "D": 0.995}
+
+
+# Phase 12: activation recompute. 12a holds phase 5's f32 step from copy16000
+# with remat=True to the golden file (phase 6's bounds: the JAX package made
+# it with remat on) and to phase 5's own step without recompute (the state
+# leaves the forwards write bit-equal, gradients within the fused-vs-plain
+# bounds), and a pair of steps without and with recompute under cuDNN's
+# deterministic algorithms to each other, every state leaf bit-equal. 12b
+# runs the driver's bf16 step, random init at the flagship widths, three
+# steps of each configuration: at 3 events without recompute, with True,
+# "wide", and remat_D=True alone (the JAX package's recipe at 3 events), and
+# at 1 event with True (phase 7's step is the one without); peak memory
+# (reset before each), ms per step (steps 2-3), B1/B2 launches per step.
+REMAT_RUNS = [("off", 3, {}), ("True", 3, {"remat": True}), ("wide", 3, {"remat": "wide"}),
+              ("remat_D=True", 3, {"remat_D": True}), ("True", 1, {"remat": True})]
+REMAT_STEPS = 3
+
+
+def remat_step(torch, config, first, deterministic=False):
+    """One f32 step from copy16000 on phase 5's first inputs and draws under
+    ``config``: the metrics, gradients and state (host copies)."""
+    from ieagan_torch.train.step import make_train_step, restore_train_state
+
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        state = restore_train_state(CHECKPOINT, "copy16000", device="cuda", config=config)
+        m = make_train_step(state.G, state.D, config, draw_schedule=first["schedule"],
+                            capture_grads=True)(state, first["x"], first["y"])
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    host = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    out = {"metrics": {k: v for k, v in m.items() if not k.startswith("_")},
+           "grads": {**{f"G.{k}": v for k, v in host(m["_grads_G"]).items()},
+                     **{f"D.{k}": v for k, v in host(m["_grads_D"]).items()}},
+           "G": host(state.G.state_dict()), "D": host(state.D.state_dict()),
+           "G_ema": host(state.G_ema.state_dict())}
+    del state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_golden(torch, np, first):
+    """12a: with remat=True, the golden step, then phase 5's step against
+    phase 5's own without recompute, then a deterministic pair."""
+    golden = golden_step_phase(torch, np, {"remat": True},
+                               "12a golden step copy16000, remat=True")
+    got = remat_step(torch, {"remat": True}, first)
+    errs = leaf_errors(np, got["grads"], first["grads"])
+    med = float(np.median(list(errs.values())))
+    keys = list(first["metrics"])
+    m_rel = max(abs(got["metrics"][k] - first["metrics"][k]) / max(abs(first["metrics"][k]), 1e-12)
+                for k in keys)
+    m_ok = all(abs(got["metrics"][k] - first["metrics"][k])
+               <= STEP_METRIC_ATOL + STEP_METRIC_RTOL * abs(first["metrics"][k]) for k in keys)
+    buffers = {net: [k for k in first[net] if f"{net}.{k}" not in got["grads"]]
+               for net in ("G", "D")}
+    unequal = {net: [k for k in names if not torch.equal(got[net][k], first[net][k])]
+               for net, names in buffers.items()}
+    worst = {net: max((float((got[net][k] - first[net][k]).abs().max()) for k in names),
+                      default=0.0) for net, names in unequal.items()}
+    print(f"12a remat=True vs phase 5's step without: metrics max rel diff {m_rel:.3e}; gradient "
+          f"per-leaf error max {max(errs.values()):.3e}, median {med:.3e} (bounds {STEP_GRAD_MAX}, "
+          f"{STEP_GRAD_MEDIAN}); state buffers (u, sv, BN stats) not bit-equal: G "
+          f"{len(unequal['G'])} of {len(buffers['G'])}, D {len(unequal['D'])} of "
+          f"{len(buffers['D'])} (max abs {worst['G']:.3e} / {worst['D']:.3e})", flush=True)
+    if not (m_ok and max(errs.values()) < STEP_GRAD_MAX and med < STEP_GRAD_MEDIAN):
+        raise SystemExit("12a: the step with recompute disagrees with phase 5's step")
+    if unequal["G"]:
+        raise SystemExit(f"12a: G's buffers differ with recompute: {unequal['G'][:5]}")
+    del got
+    pair = [remat_step(torch, cfg, first, deterministic=True) for cfg in ({}, {"remat": True})]
+    differ = [f"{net}.{k}" for net in ("G", "D", "G_ema") for k, v in pair[0][net].items()
+              if not torch.equal(v, pair[1][net][k])]
+    grads_equal = sum(torch.equal(v, pair[1]["grads"][k]) for k, v in pair[0]["grads"].items())
+    print(f"12a deterministic cuDNN, without vs with recompute: {len(differ)} of "
+          f"{sum(len(p) for p in (pair[0]['G'], pair[0]['D'], pair[0]['G_ema']))} state tensors "
+          f"differ {differ[:5]}; gradients bit-equal {grads_equal} of {len(pair[0]['grads'])}; "
+          f"metrics equal {pair[0]['metrics'] == pair[1]['metrics']}", flush=True)
+    if differ:
+        raise SystemExit("12a: recompute changed the state under deterministic algorithms")
+    return golden, max(errs.values()), med
+
+
+def remat_memory(torch, np, driver_ms, driver_peak):
+    """12b: the driver's bf16 step with and without recompute."""
+    import gc
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.models.discriminator import Discriminator
+    from ieagan_torch.models.generator import Generator
+    from ieagan_torch.parallel.sharding import make_sharded_train_step
+    from ieagan_torch.train.step import init_train_state
+
+    out = []
+    for label, epb, keys in REMAT_RUNS:
+        cfg = dict(DEFAULT_CONFIG, events_per_batch=epb, **keys)
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.device("cuda"):
+            G, D = Generator.from_config(cfg), Discriminator.from_config(cfg)
+        state = init_train_state(G, D, cfg, gen, torch.bfloat16)
+        step = make_sharded_train_step(G, D, cfg, None)
+        x = torch.rand((40 * epb, 256, 768, 1), generator=gen, device="cuda") * 2 - 1
+        y = torch.cat([torch.randperm(40, generator=gen, device="cuda") for _ in range(epb)])
+        ms, launches = [], []
+        for _ in range(REMAT_STEPS):
+            fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append((fa.attention_fwd.launches, fa.attention_bwd.launches))
+            if not all(np.isfinite(v) for v in m.values()):
+                raise SystemExit(f"12b {label} at {epb} events: non-finite metric {m}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = {"remat": label, "events": epb, "modes": [G.remat, D.remat], "peak_gib": peak,
+               "ms": ms[1:], "step1_ms": ms[0], "launches_per_step": launches[-1]}
+        print("12b bf16 driver step " + json.dumps(row), flush=True)
+        if set(launches) != {(B1_PER_STEP, B2_PER_STEP)}:
+            raise SystemExit(f"12b {label} at {epb} events: B1/B2 launched {launches}, expected "
+                             f"{(B1_PER_STEP, B2_PER_STEP)} per step")
+        out.append(row)
+        del state, step, G, D, x, y, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = {(r["remat"], r["events"]): r["peak_gib"] for r in out}
+    print(f"12b peak GiB at 3 events: off {peak[('off', 3)]:.2f}, True {peak[('True', 3)]:.2f}, "
+          f"wide {peak[('wide', 3)]:.2f}, remat_D=True {peak[('remat_D=True', 3)]:.2f}; at 1 "
+          f"event: True {peak[('True', 1)]:.2f} (phase 7 without: {driver_peak:.2f} GiB, "
+          f"{driver_ms:.1f} ms)", flush=True)
+    if not peak[("True", 3)] < peak[("off", 3)]:
+        raise SystemExit("12b: remat=True at 3 events does not peak below no recompute")
+    return out
 
 
 def phase(name, t0):
@@ -626,7 +783,12 @@ def train_path(torch, np):
     if not all(np.isfinite(v) and v > 0 for v in svs.values()) or svs == {
             k: float(D0[k][0]) for k in sv_names}:
         raise SystemExit("spectral norms were not logged")
+    reference_round_trip(torch, state)
     fused_grads, fused_mets = grads, mets[0]
+    host = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    first = {"x": x, "y": y, "schedule": schedule, "grads": host(grads),
+             "metrics": {k: v for k, v in fused_mets.items() if not k.startswith("_")},
+             "G": host(G1), "D": host(D1)}
     del state, G0, D0, E0, G1, D1, E1, mets, grads
     torch.cuda.empty_cache()
 
@@ -655,29 +817,81 @@ def train_path(torch, np):
             raise SystemExit(f"the fused train step disagrees with the {label} step")
         del other, m, other_grads
         torch.cuda.empty_cache()
-    return launches, sum(steady) / len(steady), peak
+    return launches, sum(steady) / len(steady), peak, first
 
 
-def golden_step_phase(torch, np):
-    """Phase 6: the first step from copy16000 against the JAX package's."""
+def reference_round_trip(torch, state):
+    """Phase 5's D and its Adam state (after the steps) through the
+    reference PyTorch layout, as a ``.pth`` file holds them, and back into
+    a fresh D and optimizer: every tensor, moment and count bit-equal."""
+    import io
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.models.convert import (discriminator_state_from_torch,
+                                             discriminator_state_to_torch,
+                                             optimizer_state_from_torch,
+                                             optimizer_state_to_torch)
+    from ieagan_torch.models.discriminator import Discriminator
+    from ieagan_torch.train.optim import make_optimizer
+
+    def through_file(obj):
+        buf = io.BytesIO()
+        torch.save(obj, buf)
+        buf.seek(0)
+        return torch.load(buf, weights_only=True)
+
+    t = time.perf_counter()
+    D, opt = state.D, state.opt_D
+    sd = through_file(discriminator_state_to_torch(D))
+    osd = through_file(optimizer_state_to_torch(opt, D, lr=DEFAULT_CONFIG["D_lr"]))
+    with torch.device("cuda"):
+        other = Discriminator.from_config(DEFAULT_CONFIG)
+    back = discriminator_state_from_torch(sd, DEFAULT_CONFIG["D_depth"], other.state_dict())
+    other.load_state_dict({k: torch.from_numpy(v) for k, v in back.items()}, strict=True)
+    want = D.state_dict()
+    differ = [k for k, v in other.state_dict().items() if not torch.equal(v, want[k])]
+    fresh = make_optimizer(other.parameters(), DEFAULT_CONFIG["D_B1"], DEFAULT_CONFIG["D_B2"],
+                           DEFAULT_CONFIG["adam_eps"])
+    optimizer_state_from_torch(fresh, other, osd)
+    ours = dict(zip((n for n, _ in D.named_parameters()), opt.params))
+    theirs = dict(zip((n for n, _ in other.named_parameters()), fresh.params))
+    differ += [f"{n}.{m}" for n in ours for m in ("mu", "nu")
+               if not torch.equal(fresh.state[theirs[n]][m], opt.state[ours[n]][m])]
+    print(f"phase 5 reference layout: D ({len(sd)} tensors) and its Adam state "
+          f"({len(osd['state'])} parameters, step {float(osd['state'][0]['step']):.0f}) "
+          f"through a .pth and back in "
+          f"{time.perf_counter() - t:.2f} s; differing: {differ[:5]} ({len(differ)})", flush=True)
+    if differ or fresh.count != opt.count or set(want) != set(other.state_dict()):
+        raise SystemExit("phase 5: the reference-layout round trip changed D or its Adam state")
+    del other, fresh
+
+
+def golden_step_phase(torch, np, config=None, label="golden step copy16000"):
+    """Phase 6 (and 12a with ``config`` {"remat": True}): the first step
+    from copy16000 against the JAX package's."""
     from ieagan_torch.train import golden_step
     from ieagan_torch.train.step import make_train_step, restore_train_state
 
+    config = config or {}
     g = golden_step.load()
     x, y, _ = golden_step.inputs(g["seed"])
-    state = restore_train_state(CHECKPOINT, golden_step.CHECKPOINT_TAG, device="cuda")
-    m = make_train_step(state.G, state.D, {}, draw_schedule=golden_step.draw_schedule(g),
+    state = restore_train_state(CHECKPOINT, golden_step.CHECKPOINT_TAG, device="cuda",
+                                config=config)
+    m = make_train_step(state.G, state.D, config, draw_schedule=golden_step.draw_schedule(g),
                         capture_grads=True)(state, torch.tensor(x, device="cuda"),
                                             torch.tensor(y, device="cuda").long())
     grads = {net: {k: v.cpu().numpy() for k, v in m[f"_grads_{net}"].items()}
              for net in ("G", "D")}
     result = golden_step.compare(g, golden_step.summarize(m, grads, g["entries"]))
-    print("golden step copy16000: " + json.dumps(result) + f" (tolerances: metrics rtol "
+    del state, m
+    torch.cuda.empty_cache()
+    print(f"{label}: " + json.dumps(result) + f" (tolerances: metrics rtol "
           f"{golden_step.METRIC_RTOL} atol {golden_step.METRIC_ATOL}, module gradient norms "
           f"rel {golden_step.NORM_RTOL}, entries {golden_step.ENTRY_RMS_TOL} of their "
           f"leaf's RMS)", flush=True)
     if not (result["metrics_ok"] and result["module_norm_ok"] and result["entries_ok"]):
-        raise SystemExit("the card's train step disagrees with golden_step_copy16000.json")
+        raise SystemExit(f"{label}: the card's train step disagrees with "
+                         "golden_step_copy16000.json")
+    return result
 
 
 def trace_summary(path, top=10):
@@ -1420,19 +1634,19 @@ def option_state(torch, cfg, compute_dtype, seed=10):
     return state
 
 
-def option_schedule(torch, gen, cfg, steps, es=40):
-    """The draws of ``steps`` f32 train steps under ``cfg``, in the step's
-    order (``train/step.py``)."""
+def option_schedule(torch, gen, cfg, steps, es=40, device="cuda"):
+    """The draws of ``steps`` f32 train steps under ``cfg`` for a batch of
+    ``es`` images, in the step's order (``train/step.py``)."""
     from ieagan_torch.core.config import DEFAULT_CONFIG
     from ieagan_torch.ops.diff_aug import sample_cr_draws, sample_diff_aug_draws
     full = dict(DEFAULT_CONFIG, **cfg)
-    randn = lambda n: torch.randn((es, n), generator=gen, device="cuda")
+    randn = lambda n: torch.randn((es, n), generator=gen, device=device)
     latents = lambda: [randn(128)] + ([randn(full["rdof_dim"])] if full["RRM_prx_G"] else [])
-    aug = lambda: sample_diff_aug_draws(gen, es, 256, 768, device="cuda")
+    aug = lambda: sample_diff_aug_draws(gen, es, 256, 768, device=device)
     out = []
     for _ in range(steps):
         out += latents() + [aug(), aug()]
-        out += [sample_cr_draws(gen, es, 256, 768, device="cuda")] if full["Con_reg"] else []
+        out += [sample_cr_draws(gen, es, 256, 768, device=device)] if full["Con_reg"] else []
         out += latents() + [aug()]
     return out
 
@@ -1782,6 +1996,18 @@ def option_proj(torch, np, cfg, sites):
 PHASE11_STEPS = 3
 PHASE11_RANKS = 2
 PHASE11_G_MEDIAN = 1e-2
+# 11c: phase 10b's reference-parity configuration (concat D pass, full-batch
+# RRM sequences, D's proxy RRM, prior and nonlinear embeddings, Con_reg) from
+# phase 10's random init, over the same two gloo ranks after 11b, one event
+# each, against one process taking both (11b's bounds). Each rank's
+# sequence is the global batch: the concat pass's [f_0; r_0; f_1; r_1] of
+# 160, the consistency and G phase's passes' 80; launches per rank by site
+# (the phases as in OPTION_LAUNCHES for 10b, every RRM length doubled).
+PHASE11C_LAUNCHES = {
+    ("B1", "RR_G L40"): 2, ("B1", "SA"): 3, ("B1", "RR_D L160"): 1, ("B1", "RR_D L80"): 2,
+    ("B1", "RR_Dproxy L160"): 1, ("B1", "RR_Dproxy L80"): 2,
+    ("B2", "RR_G L40"): 1, ("B2", "SA"): 3, ("B2", "RR_D L160"): 1, ("B2", "RR_D L80"): 2,
+    ("B2", "RR_Dproxy L160"): 1}
 
 
 def phase11_argv(root, *extra):
@@ -1872,6 +2098,66 @@ def phase11_inputs(torch):
     return x, y, [draw(128), draw(4), aug(), aug(), draw(128), draw(4), aug()]
 
 
+def phase11c_state(torch):
+    """11c's initial state: phase 10b's random init (prior features as
+    phase 10 sets them)."""
+    import numpy as np
+    from ieagan_torch.ops.prior import set_prior_features
+
+    set_prior_features(np.random.default_rng(OPTION_PRIOR_SEED).uniform(0.5, 2.0, 40))
+    return option_state(torch, OPTION_CONFIGS["10b reference parity"], torch.float32)
+
+
+def phase11c_inputs(torch):
+    """11c's global batch on the host: two events of 40 and the step's draws
+    at the global shape (``option_schedule``'s order)."""
+    n = 40 * PHASE11_RANKS
+    gen = torch.Generator().manual_seed(13)
+    x = torch.rand((n, 256, 768, 1), generator=gen) * 2 - 1
+    y = torch.cat([torch.randperm(40, generator=gen) for _ in range(PHASE11_RANKS)])
+    return x, y, option_schedule(torch, gen, OPTION_CONFIGS["10b reference parity"], 1, es=n,
+                                 device="cpu")
+
+
+def phase11c_single(torch, x, y, schedule):
+    """One process's f32 step of 11c on both events: metrics and gradients."""
+    from ieagan_torch.train.step import make_train_step
+
+    cfg = OPTION_CONFIGS["10b reference parity"]
+    state = phase11c_state(torch)
+    m = make_train_step(state.G, state.D, cfg, draw_schedule=[to_cuda(i) for i in schedule],
+                        capture_grads=True)(state, x.cuda(), y.cuda())
+    out = {"metrics": {k: v for k, v in m.items() if not k.startswith("_")},
+           "grads": {f"{net}.{k}": v.cpu() for net in ("G", "D")
+                     for k, v in m[f"_grads_{net}"].items()}}
+    del state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def to_cuda(item):
+    """A scheduled draw (tensor or dict of tensors) on the card."""
+    return {k: v.cuda() for k, v in item.items()} if isinstance(item, dict) else item.cuda()
+
+
+def state_digest(state):
+    """A sha256 per tensor of a train state (G, D, G_ema, Adam moments) and
+    its counts."""
+    import hashlib
+    out = {}
+    for net in ("G", "D", "G_ema"):
+        for k, v in getattr(state, net).state_dict().items():
+            out[f"{net}.{k}"] = hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+    for net in ("G", "D"):
+        opt = getattr(state, f"opt_{net}")
+        for k, p in getattr(state, net).named_parameters():
+            for mom in opt.moment_names:
+                out[f"opt_{net}.{k}.{mom}"] = hashlib.sha256(
+                    opt.state[p][mom].cpu().numpy().tobytes()).hexdigest()
+        out[f"opt_{net}.counts"] = (opt.count, opt.sched_count, state.itr)
+    return out
+
+
 def phase11_single(torch, x, y, schedule, split_moments=False):
     """One process's f32 step from copy16000 on the given batch and draws:
     metrics and gradients, on the host. ``split_moments``: batch norm sums
@@ -1890,13 +2176,11 @@ def phase11_single(torch, x, y, schedule, split_moments=False):
         return mean, sums[1] / n - mean * mean, n
 
     state = restore_train_state(CHECKPOINT, "copy16000", device="cuda")
-    to = lambda item: ({k: v.cuda() for k, v in item.items()} if isinstance(item, dict)
-                       else item.cuda())
     moments = norm._moments
     if split_moments:
         norm._moments = moments_by_event
     try:
-        m = make_train_step(state.G, state.D, {}, draw_schedule=[to(i) for i in schedule],
+        m = make_train_step(state.G, state.D, {}, draw_schedule=[to_cuda(i) for i in schedule],
                             capture_grads=True)(state, x.cuda(), y.cuda())
     finally:
         norm._moments = moments
@@ -1916,11 +2200,12 @@ def phase11_single(torch, x, y, schedule, split_moments=False):
 
 
 def phase11_rank(rank, world, init_file, job_path, out_dir, go):
-    """One rank of 11b, spawned: gloo on the card, one event, the sharded
-    f32 step from copy16000, taken once ``go`` is set (the set-up runs
-    beside 11a's resume); saves its launches, collective times, peak
-    memory, the state's digest and (rank 0) metrics and gradients."""
-    import hashlib
+    """One rank of 11b and 11c, spawned: gloo on the card, one event. 11b:
+    the sharded f32 step from copy16000, taken once ``go`` is set (the
+    set-up runs beside 11a's resume); its launches, collective times, peak
+    memory, the state's digest and (rank 0) metrics and gradients. Then
+    11c: the reference-parity step from phase 10b's init, its launches by
+    site, digest, metrics and gradients. Saved as ``rank<r>.pt``."""
     import torch
     import torch.distributed as dist
 
@@ -1941,11 +2226,9 @@ def phase11_rank(rank, world, init_file, job_path, out_dir, go):
         job = torch.load(job_path, weights_only=False)
         mesh = make_mesh(world)
         state = place_state(restore_train_state(CHECKPOINT, "copy16000", device="cuda"), mesh)
-        to = lambda item: ({k: v.cuda() for k, v in item.items()} if isinstance(item, dict)
-                           else item.cuda())
         x, y = host_local_batch(mesh, job["x"].cuda(), job["y"].cuda())
         step = make_sharded_train_step(state.G, state.D, {}, mesh,
-                                       draw_schedule=[to(i) for i in job["schedule"]],
+                                       draw_schedule=[to_cuda(i) for i in job["schedule"]],
                                        capture_grads=True)
         if not go.wait(900):
             raise SystemExit(f"11b rank {rank}: no signal to step")
@@ -1976,23 +2259,34 @@ def phase11_rank(rank, world, init_file, job_path, out_dir, go):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t) * 1e3
         out = {"launches": {"B1": fa.attention_fwd.launches, "B2": fa.attention_bwd.launches},
-               "collectives": coll, "step_ms": step_ms,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "digest": {}}
-        for net in ("G", "D", "G_ema"):
-            for k, v in getattr(state, net).state_dict().items():
-                out["digest"][f"{net}.{k}"] = hashlib.sha256(
-                    v.detach().cpu().numpy().tobytes()).hexdigest()
-        for net in ("G", "D"):
-            opt = getattr(state, f"opt_{net}")
-            for k, p in getattr(state, net).named_parameters():
-                for mom in opt.moment_names:
-                    out["digest"][f"opt_{net}.{k}.{mom}"] = hashlib.sha256(
-                        opt.state[p][mom].cpu().numpy().tobytes()).hexdigest()
-            out["digest"][f"opt_{net}.counts"] = (opt.count, opt.sched_count, state.itr)
+               "collectives": {k: dict(v) for k, v in coll.items()}, "step_ms": step_ms,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "digest": state_digest(state)}
         if rank == 0:
             out["metrics"] = {k: v for k, v in m.items() if not k.startswith("_")}
             out["grads"] = {f"{net}.{k}": v.cpu() for net in ("G", "D")
                             for k, v in m[f"_grads_{net}"].items()}
+        del state, step, m
+        torch.cuda.empty_cache()
+
+        state = place_state(phase11c_state(torch), mesh)
+        x, y = host_local_batch(mesh, job["x11c"].cuda(), job["y11c"].cuda())
+        step = make_sharded_train_step(state.G, state.D, OPTION_CONFIGS["10b reference parity"],
+                                       mesh, draw_schedule=[to_cuda(i) for i in job["schedule11c"]],
+                                       capture_grads=True)
+        with SiteCounter(fa) as sites:
+            sites.D = state.D
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y)
+            torch.cuda.synchronize()
+            c = {"step_ms": (time.perf_counter() - t) * 1e3, "sites": by_site(sites.take()),
+                 "digest": state_digest(state)}
+        if rank == 0:
+            c["metrics"] = {k: v for k, v in m.items() if not k.startswith("_")}
+            c["grads"] = {f"{net}.{k}": v.cpu() for net in ("G", "D")
+                          for k, v in m[f"_grads_{net}"].items()}
+        out["11c"] = c
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -2032,8 +2326,8 @@ def phase11_within(gap):
             and gap["D"][1] < STEP_GRAD_MEDIAN and gap["G"][1] < PHASE11_G_MEDIAN)
 
 
-def phase11_line(label, gap):
-    return (f"11b {label}: metrics max rel diff {gap['metrics']:.3e}; per-leaf gradient error "
+def phase11_line(label, gap, part="11b"):
+    return (f"{part} {label}: metrics max rel diff {gap['metrics']:.3e}; per-leaf gradient error "
             f"G max {gap['G'][0]:.3e} median {gap['G'][1]:.3e}, D max {gap['D'][0]:.3e} median "
             f"{gap['D'][1]:.3e}")
 
@@ -2092,6 +2386,29 @@ def data_parallel_phase(np, ranks, singles):
     return ranks[0]
 
 
+def reference_parity_phase(np, ranks, single):
+    """Phase 11c's checks: the ranks' launches by site, their states
+    bit-equal, rank 0 against one process taking both events (11b's
+    bounds)."""
+    for r, res in enumerate(ranks):
+        got = res["11c"]["sites"]
+        print(f"11c rank {r}: step {res['11c']['step_ms']:.1f} ms, launches by site "
+              + json.dumps({f"{k} {s_}": n for (k, s_), n in sorted(got.items())}), flush=True)
+        if got != PHASE11C_LAUNCHES:
+            raise SystemExit(f"11c rank {r}: launches {got}, expected {PHASE11C_LAUNCHES}")
+    digests = [res["11c"]["digest"] for res in ranks]
+    differ = [k for k, v in digests[0].items() if any(d.get(k) != v for d in digests[1:])]
+    if differ or any(set(d) != set(digests[0]) for d in digests):
+        raise SystemExit(f"11c: the ranks' states differ at {differ[:5]} ({len(differ)} tensors)")
+    gap = phase11_gap(np, ranks[0]["11c"], single)
+    print(phase11_line(f"{PHASE11_RANKS} ranks vs one process on both events", gap, "11c")
+          + f"; the ranks' states bit-equal ({len(digests[0])} tensors and counts)", flush=True)
+    if not phase11_within(gap):
+        raise SystemExit("11c: the reference-parity step over two ranks disagrees with the "
+                         "single process")
+    return ranks[0]["11c"]
+
+
 def parallel_phase(torch, np):
     """Phase 11: 11a through torchrun on NCCL; beside its resume, 11b's
     single-process steps and its two gloo ranks' set-up (spawn, restore,
@@ -2100,9 +2417,11 @@ def parallel_phase(torch, np):
     import tempfile
 
     x, y, schedule = phase11_inputs(torch)
+    x11c, y11c, schedule11c = phase11c_inputs(torch)
     with tempfile.TemporaryDirectory() as tmp:
         job = os.path.join(tmp, "job.pt")
-        torch.save({"x": x, "y": y, "schedule": schedule}, job)
+        torch.save({"x": x, "y": y, "schedule": schedule, "x11c": x11c, "y11c": y11c,
+                    "schedule11c": schedule11c}, job)
         ctx = multiprocessing.get_context("spawn")
         go = ctx.Event()
         procs = [ctx.Process(target=phase11_rank, args=(r, PHASE11_RANKS,
@@ -2112,11 +2431,12 @@ def parallel_phase(torch, np):
         def alongside():
             for p in procs:
                 p.start()
-            return phase11_singles(torch, np, x, y, schedule)
+            return (phase11_singles(torch, np, x, y, schedule),
+                    phase11c_single(torch, x11c, y11c, schedule11c))
 
         try:
             t0 = time.perf_counter()
-            entry_ms, singles = parallel_entry_point(np, alongside)
+            entry_ms, (singles, single11c) = parallel_entry_point(np, alongside)
             phase("11a torchrun NCCL, with 11b's single process and the ranks' set-up beside "
                   "the resume", t0)
             t0 = time.perf_counter()
@@ -2132,10 +2452,12 @@ def parallel_phase(torch, np):
             raise SystemExit(f"11b: rank exit codes {[p.exitcode for p in procs]}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(PHASE11_RANKS)]
-    print(f"11b two gloo ranks on one card: {time.perf_counter() - t0:.1f} s from the signal "
-          "to step (one step, the state's digests, the results written)", flush=True)
+    print(f"11b and 11c, two gloo ranks on one card: {time.perf_counter() - t0:.1f} s from the "
+          "signal to step (11b's step; 11c's set-up, state broadcast and step; the states' "
+          "digests; the results written)", flush=True)
     rank0 = data_parallel_phase(np, ranks, singles)
-    phase("11b two gloo ranks", t0)
+    rank0["11c"] = reference_parity_phase(np, ranks, single11c)
+    phase("11b and 11c, two gloo ranks", t0)
     return entry_ms, rank0
 
 
@@ -2192,7 +2514,7 @@ def main():
     phase("deployment path", t0)
 
     t0 = time.perf_counter()
-    train_launches, step_ms, peak = train_path(torch, np)
+    train_launches, step_ms, peak, first_step = train_path(torch, np)
     phase("training path", t0)
 
     t0 = time.perf_counter()
@@ -2218,6 +2540,14 @@ def main():
     t0 = time.perf_counter()
     dp_entry_ms, dp_rank0 = parallel_phase(torch, np)
     phase("data parallel", t0)
+
+    t0 = time.perf_counter()
+    remat_gold, remat_max, remat_med = remat_golden(torch, np, first_step)
+    del first_step
+    phase("12a recompute against the golden step and phase 5", t0)
+    t0 = time.perf_counter()
+    remat_rows = remat_memory(torch, np, driver_ms, driver_peak)
+    phase("12b recompute's memory and time", t0)
 
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
@@ -2280,6 +2610,27 @@ def main():
             "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
                      "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
                      "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
+    # 11c's sites: the RRMs at one sequence of 160 over two ranks of one
+    # event; launches per rank from 11c's step.
+    for kernel, rs, err_keys in (("B1", rows, ("max_abs_err_o",)),
+                                 ("B2", bwd_rows, ("max_abs_err_dq", "max_abs_err_dk",
+                                                   "max_abs_err_dv"))):
+        for site, width in (("RR_D", 128), ("RR_Dproxy", 256)):
+            shape = [4, 160, 160, width, width]
+            r, r16 = (pick_site(rs, site, shape, t) for t in ("float32", "bfloat16"))
+            kernels.append({
+                "name": f"attention_{'fwd' if kernel == 'B1' else 'bwd'} ({kernel}) at {site} L160"
+                        + (", 256 instance" if width == 256 else ""),
+                "route": "cuda", "source": kernels[0 if kernel == "B1" else 1]["source"],
+                "replaces": kernels[0 if kernel == "B1" else 1]["replaces"],
+                "launches": dp_rank0["11c"]["sites"].get((kernel, f"{site} L160"), 0),
+                "max_abs_err": max(r[k] for k in err_keys), "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "site": f"{site} f32 " + "x".join(map(str, shape)) + " (phase 11c, per rank)",
+                "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
+                         "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+                         "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
     kernels.append({
         "name": "attention_fwd (B1) at PEGAN's G attention", "route": "cuda",
         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
@@ -2295,7 +2646,13 @@ def main():
           + f"; 10c Proj f32 {sum(opt['10c Proj']) / len(opt['10c Proj']):.1f}", flush=True)
     print(f"phase 11: torchrun --mesh 1 bf16 step {dp_entry_ms:.1f} ms (phase 7's driver step "
           f"{driver_ms:.1f} ms); 11b rank 0 f32 step over gloo {dp_rank0['step_ms']:.1f} ms, "
-          f"peak {dp_rank0['peak_gib']:.2f} GiB", flush=True)
+          f"peak {dp_rank0['peak_gib']:.2f} GiB; 11c rank 0 {dp_rank0['11c']['step_ms']:.1f} ms",
+          flush=True)
+    print(f"phase 12: golden step with remat=True " + json.dumps(remat_gold) + f"; against phase "
+          f"5's step without, gradient per-leaf max {remat_max:.3e}, median {remat_med:.3e}; "
+          "bf16 driver step (events, remat: peak GiB, ms per step): " + "; ".join(
+              f"{r['events']}, {r['remat']}: {r['peak_gib']:.2f}, "
+              + "/".join(f"{t:.1f}" for t in r["ms"]) for r in remat_rows), flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

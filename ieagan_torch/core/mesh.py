@@ -41,7 +41,7 @@ def make_mesh(n_data: int | None = None, n_model: int = 1) -> Mesh:
     ``n_data`` defaults to the world size and must equal it."""
     if n_model > 1:
         raise NotImplementedError(
-            f"mesh model axis {n_model}: tensor parallelism is not ported (ROADMAP A10)")
+            f"mesh model axis {n_model}: not ported (tensor parallelism, ROADMAP §A)")
     world = distributed.world_size()
     n_data = world if n_data is None else int(n_data)
     if n_data != world:

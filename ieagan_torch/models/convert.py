@@ -32,21 +32,29 @@ saves (``ieagan_tpu/train/optim.py::make_optimizer``, read from
 parameter trees in the flax layout, ``"1"`` the schedule wrapper's
 ``ScaleByScheduleState``, ``{}`` the clip's empty state. Counts are int32.
 
-``generator_state_from_torch`` and ``generator_state_to_torch`` map the
-port's Generator onto the reference PyTorch layout (reference:
-model.py:139-487), as ``ieagan_tpu/models/convert.py:31-133`` and
-``:191-263`` do for the JAX package::
+``generator_state_from_torch``/``_to_torch`` and
+``discriminator_state_from_torch``/``_to_torch`` map the port's models onto
+the reference PyTorch layout (reference: model.py:139-487 for G,
+model.py:624-944 for D), as ``ieagan_tpu/models/convert.py:31-318`` does for
+the JAX package::
 
-  blocks.<k>.0.<rest>        <-> blocks_<k // G_depth>_<k % G_depth>.<rest>
-  blocks.<k>.1.<rest>        <-> attn_<k // G_depth>.<rest> (k the stage's last block)
-  output_layer.0 / .2        <-> output_bn / output_conv
-  RR_G.layers.<i>            <-> RR_G.layers_<i>
+  G: blocks.<k>.0.<rest>     <-> blocks_<k // G_depth>_<k % G_depth>.<rest>
+     blocks.<k>.1.<rest>     <-> attn_<k // G_depth>.<rest> (k the stage's last block)
+     output_layer.0 / .2     <-> output_bn / output_conv
+  D: blocks.<s>.<j>.<rest>   <-> blocks_<s>_<j>.<rest> (j < D_depth)
+     blocks.<s>.<D_depth>    <-> attn_<s>
+  RR_*.layers.<i>            <-> RR_*.layers_<i>
   ...linear_net.0 / .3       <-> ...linear1 / linear2 (the RRM's feed-forward)
   <sn module>.u<i> (1, out)  <-> <sn module>.u[i]; sv<i> (1,) <-> sv[i]
   stored_mean / stored_var   <-> mean / var
 
 Weights keep their names and layouts. The reference has no standing-stats
 counters: ``accumulation_counter`` is left out of the export and read as 0.
+``optimizer_state_to_torch``/``_from_torch`` map a plain-Adam ``OptaxAdam``
+onto the reference's ``torch.optim.Adam`` state dict (``step``,
+``exp_avg``, ``exp_avg_sq`` per parameter index, in the order of
+``torch_param_names``), as ``export_adam_to_torch`` and
+``convert_torch_adam`` do (``ieagan_tpu/models/convert.py:358-464``).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.norm import LayerNorm
 from ieagan_torch.ops.spectral import Embedding, SNEmbedding
 
@@ -268,13 +277,21 @@ def optimizer_state_from_flax(opt, model: torch.nn.Module, tree: Mapping):
     opt.sched_count = int(tree["1"]["count"])
 
 
-def _torch_module_path(parts: list[str], g_depth: int) -> list[str]:
-    """A reference-layout module path as the port's."""
+def _depth(model: torch.nn.Module) -> int:
+    """Blocks per stage of the port's Generator or Discriminator."""
+    return sum(1 for name in model.layer_names if name.startswith("blocks_0_"))
+
+
+def _torch_module_path(parts: list[str], depth: int, net: str) -> list[str]:
+    """A reference-layout module path of ``net`` ("G" or "D") as the port's."""
     if parts[0] == "blocks":
         k, j = int(parts[1]), int(parts[2])
-        name = f"blocks_{k // g_depth}_{k % g_depth}" if j == 0 else f"attn_{k // g_depth}"
+        if net == "G":  # one list per block, numbered over all stages
+            name = f"blocks_{k // depth}_{k % depth}" if j == 0 else f"attn_{k // depth}"
+        else:  # one list per stage, its attention after its blocks
+            name = f"blocks_{k}_{j}" if j < depth else f"attn_{k}"
         return [name] + parts[3:]
-    if parts[0] == "output_layer":
+    if net == "G" and parts[0] == "output_layer":
         return [{"0": "output_bn", "2": "output_conv"}[parts[1]]] + parts[2:]
     out = []
     rest = list(parts)
@@ -289,14 +306,17 @@ def _torch_module_path(parts: list[str], g_depth: int) -> list[str]:
     return out
 
 
-def _port_module_path(parts: list[str], g_depth: int) -> list[str]:
-    """A module path of the port's Generator in the reference layout."""
+def _port_module_path(parts: list[str], depth: int, net: str) -> list[str]:
+    """A module path of the port's ``net`` in the reference layout."""
     head = parts[0]
     if head.startswith("blocks_"):
         stage, index = map(int, head.split("_")[1:])
-        return ["blocks", str(stage * g_depth + index), "0"] + parts[1:]
+        where = [str(stage * depth + index), "0"] if net == "G" else [str(stage), str(index)]
+        return ["blocks"] + where + parts[1:]
     if head.startswith("attn_"):
-        return ["blocks", str(int(head.split("_")[1]) * g_depth + g_depth - 1), "1"] + parts[1:]
+        stage = int(head.split("_")[1])
+        where = [str(stage * depth + depth - 1), "1"] if net == "G" else [str(stage), str(depth)]
+        return ["blocks"] + where + parts[1:]
     if head in ("output_bn", "output_conv"):
         return ["output_layer", "0" if head == "output_bn" else "2"] + parts[1:]
     out = []
@@ -310,23 +330,25 @@ def _port_module_path(parts: list[str], g_depth: int) -> list[str]:
     return out
 
 
-def generator_state_from_torch(state_dict: Mapping, g_depth: int = 2,
-                               template: Mapping | None = None) -> dict:
-    """A state dict (numpy, the port's names) for the port's Generator from a
-    reference-layout PyTorch Generator state dict (tensors or arrays).
+def _reference_name(name: str, depth: int, net: str) -> str:
+    """The reference-layout key of the port's parameter or buffer ``name``
+    (``u``/``sv`` rows excepted: they become ``u0``.. and ``sv0``..)."""
+    *mod, leaf = name.split(".")
+    key = ".".join(_port_module_path(mod, depth, net)) if mod else ""
+    leaf = {"mean": "stored_mean", "var": "stored_var"}.get(leaf, leaf)
+    return f"{key}.{leaf}" if key else leaf
 
-    Raises ``KeyError`` on a key it cannot map. With ``template`` (the port's
-    ``state_dict()``), a template key missing from the result is an error too,
-    except the standing-stats counters, which the reference does not keep
-    and which are read as 0; so is a converted key the template does not
-    have, and a shape that differs."""
+
+def _state_from_torch(state_dict: Mapping, depth: int, template: Mapping | None,
+                      net: str) -> dict:
+    what = {"G": "Generator", "D": "Discriminator"}[net]
     out: dict[str, np.ndarray] = {}
     svs: dict[tuple, dict[int, np.ndarray]] = {}
     for key, value in state_dict.items():
         arr = np.asarray(value.detach().cpu().float().numpy() if hasattr(value, "detach")
                          else value, np.float32)
         *mod, leaf = key.split(".")
-        path = ".".join(_torch_module_path(mod, g_depth)) if mod else ""
+        path = ".".join(_torch_module_path(mod, depth, net)) if mod else ""
         for prefix, name in (("u", "u"), ("sv", "sv")):
             if leaf.startswith(prefix) and leaf[len(prefix):].isdigit():
                 svs.setdefault((path, name), {})[int(leaf[len(prefix):])] = arr.reshape(-1)
@@ -348,7 +370,7 @@ def generator_state_from_torch(state_dict: Mapping, g_depth: int = 2,
         missing = sorted(set(template) - set(out))
         unused = sorted(set(out) - set(template))
         if missing or unused:
-            raise KeyError(f"state dict does not fit the port's Generator: missing "
+            raise KeyError(f"state dict does not fit the port's {what}: missing "
                            f"{missing[:8]} ({len(missing)}), unused {unused[:8]} ({len(unused)})")
         for name in out:
             want = tuple(template[name].shape)
@@ -359,23 +381,143 @@ def generator_state_from_torch(state_dict: Mapping, g_depth: int = 2,
     return out
 
 
+def _state_to_torch(model: torch.nn.Module, net: str) -> dict:
+    depth = _depth(model)
+    out = {}
+    for name, tensor in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "accumulation_counter":
+            continue
+        key = _reference_name(name, depth, net)
+        value = tensor.detach().to("cpu", torch.float32).clone()
+        if leaf in ("u", "sv"):
+            for i, row in enumerate(value):
+                out[f"{key}{i}"] = row.reshape(1, -1) if leaf == "u" else row.reshape(1)
+            continue
+        out[key] = value
+    return out
+
+
+def generator_state_from_torch(state_dict: Mapping, g_depth: int = 2,
+                               template: Mapping | None = None) -> dict:
+    """A state dict (numpy, the port's names) for the port's Generator from a
+    reference-layout PyTorch Generator state dict (tensors or arrays).
+
+    Raises ``KeyError`` on a key it cannot map. With ``template`` (the port's
+    ``state_dict()``), a template key missing from the result is an error too,
+    except the standing-stats counters, which the reference does not keep
+    and which are read as 0; so is a converted key the template does not
+    have, and a shape that differs."""
+    return _state_from_torch(state_dict, g_depth, template, "G")
+
+
 def generator_state_to_torch(model: torch.nn.Module) -> dict:
     """The reference-layout PyTorch state dict (CPU tensors) of the port's
     Generator: the inverse of ``generator_state_from_torch``. ``u`` of shape
     (num_svs, out) becomes ``u0``.. of shape (1, out), ``sv`` ``sv0``.. of
     shape (1,)."""
-    g_depth = sum(1 for name in model.layer_names if name.startswith("blocks_0_"))
-    out = {}
-    for name, tensor in model.state_dict().items():
-        *mod, leaf = name.split(".")
-        if leaf == "accumulation_counter":
+    return _state_to_torch(model, "G")
+
+
+def discriminator_state_from_torch(state_dict: Mapping, d_depth: int = 2,
+                                   template: Mapping | None = None) -> dict:
+    """A state dict (numpy, the port's names) for the port's Discriminator
+    from a reference-layout PyTorch Discriminator state dict, with the
+    checks of ``generator_state_from_torch`` (the twin of
+    ``ieagan_tpu/models/convert.py::convert_torch_discriminator``)."""
+    return _state_from_torch(state_dict, d_depth, template, "D")
+
+
+def discriminator_state_to_torch(model: torch.nn.Module) -> dict:
+    """The reference-layout PyTorch state dict (CPU tensors) of the port's
+    Discriminator: the inverse of ``discriminator_state_from_torch`` (the
+    twin of ``export_discriminator_to_torch``)."""
+    return _state_to_torch(model, "D")
+
+
+def _net(model: torch.nn.Module) -> str:
+    return "G" if isinstance(model, Generator) else "D"
+
+
+def torch_param_names(model: torch.nn.Module) -> list[str]:
+    """The reference-layout names of ``model``'s parameters in the index
+    order of the reference optimizer's state dict: the order of the model's
+    reference state dict (``<net>_state_to_torch``) without its buffers, the
+    twin of ``ieagan_tpu/models/convert.py::torch_param_names``. The
+    reference code is not in the repository: the order is the port's
+    modules'."""
+    net = _net(model)
+    depth = _depth(model)
+    names = {_reference_name(n, depth, net) for n, _ in model.named_parameters()}
+    return [k for k in _state_to_torch(model, net) if k in names]
+
+
+def _port_params(model: torch.nn.Module) -> dict:
+    """Reference-layout name -> the port's parameter."""
+    net, depth = _net(model), _depth(model)
+    return {_reference_name(n, depth, net): p for n, p in model.named_parameters()}
+
+
+def _refuse_variant(opt):
+    if opt.variant != "adam":
+        raise ValueError(f"the reference optimizer is torch.optim.Adam; {opt.variant} moments "
+                         "have no counterpart there")
+
+
+def optimizer_state_to_torch(opt, model: torch.nn.Module, lr: float) -> dict:
+    """The reference ``torch.optim.Adam`` state dict (CPU tensors) of
+    ``opt``, an ``OptaxAdam`` of plain Adam over ``model``'s parameters, the
+    twin of ``export_adam_to_torch``: per parameter index
+    (``torch_param_names``) ``step``, ``exp_avg`` (optax's ``mu``) and
+    ``exp_avg_sq`` (``nu``), which keep their layout (the port's weights
+    are in torch's); one parameter group with ``lr`` (the port's optimizer
+    holds none), the betas and eps. AMSGrad and AdaBelief are refused."""
+    _refuse_variant(opt)
+    params = _port_params(model)
+    names = torch_param_names(model)
+    state = {i: {"step": torch.tensor(float(opt.count)),
+                 "exp_avg": opt.state[params[k]]["mu"].detach().to("cpu").clone(),
+                 "exp_avg_sq": opt.state[params[k]]["nu"].detach().to("cpu").clone()}
+             for i, k in enumerate(names)}
+    group = opt.param_groups[0]
+    return {"state": state, "param_groups": [{
+        "lr": float(lr), "betas": (group["b1"], group["b2"]), "eps": group["eps"],
+        "weight_decay": 0.0, "amsgrad": False, "params": list(range(len(names)))}]}
+
+
+def optimizer_state_from_torch(opt, model: torch.nn.Module, optim_state_dict: Mapping):
+    """Load a reference ``torch.optim.Adam`` state dict into ``opt`` (an
+    ``OptaxAdam`` of plain Adam over ``model``'s parameters), the twin of
+    ``convert_torch_adam``: ``exp_avg``/``exp_avg_sq`` by parameter index
+    (``torch_param_names``) into ``mu``/``nu``; parameters the torch state
+    lacks keep zero moments; Adam's count is the largest ``step``. The
+    schedule's count is left as it is. AMSGrad and AdaBelief, on either
+    side, are refused."""
+    _refuse_variant(opt)
+    groups = optim_state_dict.get("param_groups", [])
+    state = {int(i): st for i, st in optim_state_dict["state"].items()}
+    if any(g.get("amsgrad") for g in groups) or any("max_exp_avg_sq" in st
+                                                    for st in state.values()):
+        raise ValueError("an AMSGrad state dict: the port reads torch.optim.Adam's alone")
+    params = _port_params(model)
+    names = torch_param_names(model)
+    moments = {}
+    for i, st in state.items():
+        if i >= len(names) or "exp_avg" not in st:
             continue
-        key = ".".join(_port_module_path(mod, g_depth)) if mod else ""
-        value = tensor.detach().to("cpu", torch.float32).clone()
-        if leaf in ("u", "sv"):
-            for i, row in enumerate(value):
-                out[f"{key}.{leaf}{i}"] = row.reshape(1, -1) if leaf == "u" else row.reshape(1)
-            continue
-        leaf = {"mean": "stored_mean", "var": "stored_var"}.get(leaf, leaf)
-        out[f"{key}.{leaf}" if key else leaf] = value
-    return out
+        p = params[names[i]]
+        for src, dst in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+            value = torch.as_tensor(np.asarray(st[src].detach().cpu() if hasattr(st[src], "detach")
+                                               else st[src], np.float32))
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"moment shape mismatch: {names[i]} {tuple(value.shape)} "
+                                 f"vs {tuple(p.shape)}")
+            moments[(p, dst)] = value
+    steps = [int(np.asarray(st["step"].cpu() if hasattr(st["step"], "cpu") else st["step"]).max())
+             for st in state.values() if "step" in st]
+    with torch.no_grad():
+        for p in opt.params:
+            for m in ("mu", "nu"):
+                value = moments.get((p, m))
+                opt.state[p][m].copy_(torch.zeros_like(p) if value is None else value)
+    opt.count = max(steps) if steps else 0

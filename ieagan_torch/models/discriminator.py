@@ -32,8 +32,10 @@ from ieagan_torch.models.arch import d_arch
 from ieagan_torch.models.generator import ACTIVATIONS, image_attention
 from ieagan_torch.ops.norm import LayerNorm
 from ieagan_torch.ops.prior import prior_features
+from ieagan_torch.ops.remat import remat_mode, segment
 from ieagan_torch.ops.rrm import RelationalReasoning
 from ieagan_torch.ops.spectral import SNConv2d, SNEmbedding, SNLinear
+from ieagan_torch.parallel.collectives import all_gather_rows, batch_mesh
 
 
 class DBlock(nn.Module):
@@ -96,14 +98,21 @@ class Discriminator(nn.Module):
       * ``nonlinear_embed``: ``embed = linear2(act(embed))``;
       * ``rrm_full_batch_sequence``: RR_D and RR_Dproxy take the whole input
         batch as one sequence (the reference's ``h.unsqueeze(0)``), not one
-        sequence per event.
+        sequence per event; under the train step's mesh, the global batch.
+
+    ``remat`` (``remat_D`` over ``remat``, ``ops/remat.py::remat_mode``)
+    recomputes activations in the backward, as the JAX discriminator's
+    ``nn.remat`` does (``ieagan_tpu/models/discriminator.py:148-184``): under
+    ``True`` and ``"wide"`` the stem (``input_conv`` and ``blocks_0_0``) is
+    one segment, then every other block under ``True``, those of the first
+    two stages under ``"wide"``; image attention is never in a segment.
 
     ``D_param`` is read and ignored: the layers are SN whatever its value,
-    as in the JAX package (``ieagan_tpu/models/discriminator.py:141-145``);
-    so are the ``remat`` keys. ``output_dim`` must be 1 (the JAX step
-    squeezes the score). Spectral norm writes ``u`` and ``sv`` back on every
-    forward in train mode. Parameters are allocated empty: call
-    ``reset_parameters(generator)`` or load a state dict.
+    as in the JAX package (``ieagan_tpu/models/discriminator.py:141-145``).
+    ``output_dim`` must be 1 (the JAX step squeezes the score). Spectral
+    norm writes ``u`` and ``sv`` back on every forward in train mode.
+    Parameters are allocated empty: call ``reset_parameters(generator)`` or
+    load a state dict.
     """
 
     def __init__(self, D_ch: int = 32, D_depth: int = 2, resolution: int = 256,
@@ -115,7 +124,8 @@ class Discriminator(nn.Module):
                  nonlinear_embed: bool = False, normalize_embed: bool = True,
                  prior_embed: bool = False, RRM_prx_D: bool = False,
                  RRM_embed: bool = True, n_head_D: int = 4, event_size: int = 40,
-                 rrm_full_batch_sequence: bool = False, fused_attention: bool = False):
+                 rrm_full_batch_sequence: bool = False, fused_attention: bool = False,
+                 remat=False):
         super().__init__()
         if conditional_strategy not in ("Contra", "Proj"):
             raise NotImplementedError(f"conditional_strategy {conditional_strategy!r}")
@@ -153,6 +163,10 @@ class Discriminator(nn.Module):
                 if attn is not None:
                     self.add_module(f"attn_{index}", attn)
                     self.layer_names.append(f"attn_{index}")
+        self.remat = remat
+        self.remat_blocks = {name for name in self.layer_names[1:]
+                             if remat and name.startswith("blocks_")
+                             and (remat != "wide" or int(name.split("_")[1]) < 2)}
         top = arch["out_channels"][-1]
         self.linear0 = linear(top, output_dim)
         if conditional_strategy == "Proj":
@@ -187,6 +201,7 @@ class Discriminator(nn.Module):
         kwargs = {k: v for k, v in config.items() if k in names}
         kwargs["event_size"] = int(config.get("n_classes", 40))
         kwargs["fused_attention"] = bool(config.get("use_pallas_attention", False))
+        kwargs["remat"] = remat_mode(config, "D")
         return cls(**kwargs)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -196,11 +211,21 @@ class Discriminator(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    def _stem(self, x):
+        """``input_conv`` and the first block: one recompute segment under
+        remat (JAX's ``_stem``), whose input is the one-channel image."""
+        return self.blocks_0_0(self.input_conv(x))
+
     def _sequences(self, rrm, h):
         """``rrm`` over ``h`` (B, d) as one sequence per event, or as one
-        sequence of the whole batch."""
-        seq = h.shape[0] if self.full_batch_sequence else self.event_size
-        return rrm(h.reshape(-1, seq, h.shape[-1])).reshape(h.shape)
+        sequence of the whole batch: inside ``global_batch(mesh)`` the global
+        batch, gathered in rank order, of which this rank keeps its rows (the
+        gather's backward sums the ranks' gradients of them)."""
+        if not self.full_batch_sequence:
+            return rrm(h.reshape(-1, self.event_size, h.shape[-1])).reshape(h.shape)
+        mesh = batch_mesh()
+        out = rrm(all_gather_rows(h, mesh).unsqueeze(0)).squeeze(0)
+        return out if mesh is None else out[mesh.rows(h.shape[0])]
 
     def forward(self, x, y):
         """x: (B, H, W, 1) images in [-1, 1]; y: (B,) int labels, B a
@@ -208,9 +233,14 @@ class Discriminator(nn.Module):
         train step casts the reals to the compute type, where the JAX package's
         D casts its input). Returns ``(proxy (B, hyper), embed (B, hyper),
         out (B,))`` under Contra, the score (B, 1) under Proj."""
-        h = self.input_conv(x.permute(0, 3, 1, 2))
-        for name in self.layer_names:
-            h = getattr(self, name)(h)
+        x = x.permute(0, 3, 1, 2)
+        if self.remat:
+            h = segment(self._stem, [self.input_conv, self.blocks_0_0], x)
+        else:
+            h = self._stem(x)
+        for name in self.layer_names[1:]:
+            layer = getattr(self, name)
+            h = segment(layer, [layer], h) if name in self.remat_blocks else layer(h)
         h = torch.sum(self.activation(h), dim=(2, 3))
         if self.strategy == "Proj":
             emb = self.embed(y).to(h.dtype)

@@ -29,6 +29,7 @@ from ieagan_torch.models.arch import g_arch
 from ieagan_torch.ops.attention import ILA, CBAMAttention, SelfAttention2d
 from ieagan_torch.ops.norm import BatchNorm, ClassCondBatchNorm
 from ieagan_torch.ops.prior import prior_features
+from ieagan_torch.ops.remat import remat_mode, segment
 from ieagan_torch.ops.rrm import RelationalReasoning
 from ieagan_torch.ops.spectral import Conv2d, Embedding, Linear, SNConv2d, SNLinear
 
@@ -118,9 +119,15 @@ class Generator(nn.Module):
         conditioned on the class embedding alone;
       * ``norm_style`` goes to every ccbn (``ops/norm.py``).
 
-    The ``remat`` keys are read and ignored: recomputing activations changes
-    memory, not numbers. Parameters are allocated empty: call
-    ``reset_parameters(generator)`` or load a state dict.
+    ``remat`` (``remat_G`` over ``remat``, ``ops/remat.py::remat_mode``)
+    recomputes activations in the backward, as the JAX generator's
+    ``nn.remat`` does (``ieagan_tpu/models/generator.py:214-287``): under
+    ``True`` every block is a segment, under ``"wide"`` only the blocks of
+    the last two stages; under both, the tail (the last block, an attention
+    at the last stage, ``output_bn``, ``output_conv`` and the tanh) is one
+    segment. It changes memory and time, not numbers. Parameters are
+    allocated empty: call ``reset_parameters(generator)`` or load a state
+    dict.
     """
 
     def __init__(self, G_ch: int = 32, G_depth: int = 2, dim_z: int = 128,
@@ -132,7 +139,7 @@ class Generator(nn.Module):
                  attn_type: str = "sa", RRM_prx_G: bool = True,
                  normalized_proxy_G: bool = False, prior_embed: bool = False,
                  n_head_G: int = 2, G_param: str = "SN", norm_style: str = "bn",
-                 event_size: int = 40, fused_attention: bool = False):
+                 event_size: int = 40, fused_attention: bool = False, remat=False):
         super().__init__()
         arch = g_arch(G_ch, G_attn)[resolution]
         self.arch = arch
@@ -194,6 +201,15 @@ class Generator(nn.Module):
                     self.layer_names.append(f"attn_{index}")
         self.output_bn = BatchNorm(arch["out_channels"][-1], eps=1e-5)
         self.output_conv = conv(arch["out_channels"][-1], 1, 3)
+        # the tail starts at the last block (JAX's _tail); remat makes a
+        # segment of each block before it from stage ``first`` on
+        last = len(arch["out_channels"]) - 1
+        self.tail_start = self.layer_names.index(f"blocks_{last}_{G_depth - 1}")
+        self.remat = remat
+        first = last - 1 if remat == "wide" else 0
+        self.remat_blocks = {name for name in self.layer_names[:self.tail_start]
+                             if remat and name.startswith("blocks_")
+                             and int(name.split("_")[1]) >= first}
 
     @classmethod
     def from_config(cls, config: dict) -> "Generator":
@@ -202,6 +218,7 @@ class Generator(nn.Module):
         kwargs = {k: v for k, v in config.items() if k in names}
         kwargs["event_size"] = int(config.get("n_classes", 40))
         kwargs["fused_attention"] = bool(config.get("use_pallas_attention", False))
+        kwargs["remat"] = remat_mode(config, "G")
         return cls(**kwargs)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -235,9 +252,31 @@ class Generator(nn.Module):
         h = self.linear(h).reshape(
             cond.shape[0], self.arch["in_channels"][0], self.bottom_width,
             self.bottom_width * self.H_base)
-        for name in self.layer_names:
-            layer = getattr(self, name)
-            h = layer(h, cond, accumulate_standing) if isinstance(layer, GBlock) else layer(h)
+        for name in self.layer_names[:self.tail_start]:
+            if name in self.remat_blocks:
+                layer = getattr(self, name)
+                h = segment(functools.partial(layer, accumulate_standing=accumulate_standing),
+                            [layer], h, cond)
+            else:
+                h = self._layer(name, h, cond, accumulate_standing)
+        tail = functools.partial(self._tail, accumulate_standing=accumulate_standing)
+        if self.remat:
+            names = self.layer_names[self.tail_start:]
+            h = segment(tail, [getattr(self, n) for n in names] + [self.output_bn,
+                                                                   self.output_conv], h, cond)
+        else:
+            h = tail(h, cond)
+        return h.permute(0, 2, 3, 1)
+
+    def _layer(self, name, h, cond, accumulate_standing):
+        layer = getattr(self, name)
+        return layer(h, cond, accumulate_standing) if isinstance(layer, GBlock) else layer(h)
+
+    def _tail(self, h, cond, accumulate_standing):
+        """The last block, an attention at the last stage, the output head
+        and the tanh: one recompute segment under remat (JAX's ``_tail``)."""
+        for name in self.layer_names[self.tail_start:]:
+            h = self._layer(name, h, cond, accumulate_standing)
         h = self.output_bn(h, accumulate_standing)
         h = self.output_conv(self.activation(h))
-        return torch.tanh(h.float()).to(h.dtype).permute(0, 2, 3, 1)
+        return torch.tanh(h.float()).to(h.dtype)

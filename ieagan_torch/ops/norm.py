@@ -3,9 +3,9 @@
 Reference semantics (reference: layers.py:505-742), NCHW here:
   * train mode: batch moments over (N, H, W) in f32; running stats updated as
     ``running = (1-m)*running + m*batch`` with m = 0.1 and the unbiased batch
-    variance; inside ``global_batch_moments(mesh)`` the moments span the
-    global batch of every rank of the mesh, as the JAX package's do under
-    its sharded jit (``ieagan_tpu/ops/norm.py:15-18``);
+    variance; inside ``parallel/collectives.py::global_batch(mesh)`` the
+    moments span the global batch of every rank of the mesh, as the JAX
+    package's do under its sharded jit (``ieagan_tpu/ops/norm.py:15-18``);
   * eval mode: running stats, divided by the standing-stats counter when
     standing stats are in use (myBN, layers.py:547-599);
   * ccbn (layers.py:622-694): gain = 1 + Linear(y), bias = Linear(y), per
@@ -17,40 +17,23 @@ Reference semantics (reference: layers.py:505-742), NCHW here:
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 from typing import Callable
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ieagan_torch.parallel.collectives import all_reduce_sum
-
-# The mesh whose global batch train-mode moments span, set by the train step
-# for its own forwards only: rank 0's sampling and FID generation outside the
-# step take the moments of their own batch and run no collective.
-_MOMENTS_MESH = contextvars.ContextVar("moments_mesh", default=None)
-
-
-@contextlib.contextmanager
-def global_batch_moments(mesh):
-    """Train-mode batch norm inside the block takes its moments over the
-    global batch of ``mesh``: one all-reduce of the per-channel ``Σx`` and
-    ``Σx²`` a layer, then ``E[x²] - E[x]²`` in f32 as one process computes
-    it. With ``None`` or one rank, the moments of the local batch."""
-    token = _MOMENTS_MESH.set(None if mesh is None or mesh.n_data == 1 else mesh)
-    try:
-        yield
-    finally:
-        _MOMENTS_MESH.reset(token)
+from ieagan_torch.ops.remat import recomputing
+from ieagan_torch.parallel.collectives import all_reduce_sum, batch_mesh
 
 
 def _moments(xf):
     """Per-channel ``(mean, biased var, count)`` of NCHW ``xf`` over (N, H,
-    W), over every rank's batch inside ``global_batch_moments``."""
+    W), over every rank's batch inside ``parallel/collectives.py::global_batch``:
+    one all-reduce of the per-channel ``Σx`` and ``Σx²`` a layer, then
+    ``E[x²] - E[x]²`` in f32 as one process computes it."""
     n = xf.numel() // xf.shape[1]
-    mesh = _MOMENTS_MESH.get()
+    mesh = batch_mesh()
     if mesh is None:
         mean = xf.mean(dim=(0, 2, 3))
         return mean, (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, n
@@ -80,11 +63,14 @@ class _BatchStats(nn.Module):
 
     def _scale_shift(self, x, accumulate_standing: bool):
         """Per-channel ``(inv_std, mean)`` in f32 for normalizing ``x``,
-        updating the running or standing stats in train mode."""
+        updating the running or standing stats in train mode (but not in an
+        activation recompute)."""
         if self.training:
             mean, var, n = _moments(x.float())
             with torch.no_grad():
-                if accumulate_standing:
+                if recomputing():
+                    pass  # the segment's forward updated them (ops/remat.py)
+                elif accumulate_standing:
                     self.mean.add_(mean)
                     self.var.add_(var)
                     self.accumulation_counter.add_(1.0)

@@ -11,7 +11,9 @@ variable naming a csv; with none of them the table is uniform, so the
 
 The table is module state, as in the JAX package: the first
 ``prior_features`` call without a table set fixes it for the process, and
-tests that compare the two packages must set it in both.
+tests that compare the two packages must set it in both. Inside the train
+step's ``parallel/collectives.py::global_batch(mesh)`` the norm spans the
+global batch, as the JAX package's does under its sharded jit.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import os
 
 import numpy as np
 import torch
+
+from ieagan_torch.parallel.collectives import all_reduce_sum, batch_mesh
 
 _FEATURES: np.ndarray | None = None
 
@@ -45,7 +49,8 @@ def load_prior_features(path: str = "features.csv", column: int = 8) -> np.ndarr
 def prior_features(y: torch.Tensor, n_classes: int, norm: bool = True) -> torch.Tensor:
     """The prior feature of each label in ``y``: (B, 1) f32 on ``y``'s
     device; with ``norm``, divided by its L2 norm over the batch (reference
-    layers.py:26, ``F.normalize(dim=0)``)."""
+    layers.py:26, ``F.normalize(dim=0)``), every rank's batch inside
+    ``global_batch``."""
     global _FEATURES
     if _FEATURES is None:
         env = os.environ.get("IEAGAN_PRIOR_FEATURES")
@@ -56,5 +61,6 @@ def prior_features(y: torch.Tensor, n_classes: int, norm: bool = True) -> torch.
     table = torch.as_tensor(_FEATURES[:n_classes], device=y.device)
     feats = table[y][:, None]
     if norm:
-        feats = feats / torch.clamp(torch.linalg.vector_norm(feats), min=1e-12)
+        square = all_reduce_sum(torch.sum(feats * feats), batch_mesh())
+        feats = feats / torch.clamp(torch.sqrt(square), min=1e-12)
     return feats

@@ -5,7 +5,8 @@ package keeps them:
   * per-layer left singular vector(s) ``u`` of shape (num_svs, out);
   * ``num_itrs`` power-iteration step(s) on every forward call, eval included;
   * Gram-Schmidt across the ``num_svs`` tracked singular values;
-  * ``u`` and the logged ``sv`` are written back only in train mode;
+  * ``u`` and the logged ``sv`` are written back only in train mode, and
+    never by an activation recompute (``ops/remat.py``);
   * ``sv = v Wᵀ uᵀ`` carries gradient through W (u and v are constants).
 
 Weights are in PyTorch layout: linear ``(out, in)``, conv ``(O, I, kh, kw)``.
@@ -20,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ieagan_torch.ops.remat import recompute_u
 
 
 def _l2normalize(v, eps: float):
@@ -71,9 +74,14 @@ class _SpectralNorm(nn.Module):
             self.sv.fill_(1.0)
 
     def normalized_weight(self):
+        """W / σ(W). In a recompute segment's backward (``ops/remat.py``)
+        the power iteration starts from the ``u`` of the segment's entry and
+        writes nothing back."""
         w_mat = self.weight.reshape(self.weight.shape[0], -1)
-        svs, new_us = power_iteration(w_mat, self.u, self.num_itrs, self.eps)
-        if self.training:
+        u0 = recompute_u(self)
+        svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
+                                      self.eps)
+        if self.training and u0 is None:
             with torch.no_grad():
                 self.u.copy_(new_us)
                 self.sv.copy_(svs)

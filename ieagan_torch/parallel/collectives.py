@@ -3,8 +3,11 @@
 The JAX package has no twin of this module: under ``jax.jit`` with the event
 axis sharded, XLA inserts the all-reduces that batch-wide reductions need.
 Here the train step calls them where the JAX step's global view reduces over
-the batch: batch-norm moments (``ops/norm.py``), the losses that pair every
-image with every other (``train/step.py``), the gradients and the metrics.
+the batch: batch-norm moments (``ops/norm.py``), D's full-batch RRM sequence
+(``models/discriminator.py``), the prior embedding's norm (``ops/prior.py``),
+the losses that pair every image with every other (``train/step.py``), the
+gradients and the metrics. The models' three take their mesh from
+``global_batch``, a context the step enters.
 
 Each function takes a ``core/mesh.py::Mesh`` (or ``None``) and is the
 identity with one process. The backward of each is its adjoint, so a rank's
@@ -20,12 +23,39 @@ losses once ``all_reduce_grads`` has averaged it:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.distributed as dist
+
+# The mesh whose global batch the models' batch-wide operations span, set by
+# the train step for its own forwards only: rank 0's sampling and FID
+# generation outside the step take their own batch and run no collective.
+_BATCH_MESH = contextvars.ContextVar("batch_mesh", default=None)
 
 
 def _single(mesh) -> bool:
     return mesh is None or mesh.n_data == 1
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Inside the block, train-mode batch norm takes its moments over the
+    global batch of ``mesh`` (``ops/norm.py``), D's full-batch RRM sequence
+    is the global batch (``models/discriminator.py``) and the prior
+    embedding's norm spans it (``ops/prior.py``). With ``None`` or one rank,
+    the local batch."""
+    token = _BATCH_MESH.set(None if _single(mesh) else mesh)
+    try:
+        yield
+    finally:
+        _BATCH_MESH.reset(token)
+
+
+def batch_mesh():
+    """The mesh of the enclosing ``global_batch``, or None (the local batch)."""
+    return _BATCH_MESH.get()
 
 
 class _AllReduceSum(torch.autograd.Function):

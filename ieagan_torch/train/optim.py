@@ -26,6 +26,7 @@ where optax takes it of the bias-corrected one, torch has no AdaBelief, and
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable
 
@@ -69,26 +70,58 @@ def make_lr_schedule(base_lr: float, sched_version: str | None, num_epochs: int,
     return base_lr
 
 
+def _group_entry(name: str) -> property:
+    """An attribute that reads and writes ``name`` of the optimizer's one
+    parameter group."""
+    return property(lambda self: self.param_groups[0][name],
+                    lambda self, value: self.param_groups[0].__setitem__(name, value))
+
+
 class OptaxAdam(torch.optim.Optimizer):
     """Adam, AMSGrad or AdaBelief as optax computes them, behind an optional
     ``clip_by_global_norm``. The moments are allocated at construction, as
     optax's ``init`` does, and every parameter takes an update each step (a
-    missing gradient counts as zero)."""
+    missing gradient counts as zero).
+
+    ``clip_norm``, ``variant`` and the two counts live in the one parameter
+    group, which ``torch.optim.Optimizer`` carries through ``state_dict``,
+    ``load_state_dict``, ``copy.deepcopy`` and pickling, as optax's state
+    pytree carries its counts; an attribute of the optimizer would be lost
+    by each of them."""
 
     def __init__(self, params, b1: float, b2: float, eps: float,
                  clip_norm: float | None = None, amsgrad: bool = False,
                  ada_belief: bool = False):
-        super().__init__(params, dict(b1=b1, b2=b2, eps=eps))
+        variant = "adabelief" if ada_belief else ("amsgrad" if amsgrad else "adam")
+        super().__init__(params, dict(
+            b1=b1, b2=b2, eps=eps, clip_norm=None if clip_norm is None else float(clip_norm),
+            variant=variant,
+            count=0,         # ScaleByAdamState.count (and its AMSGrad/AdaBelief twins)
+            sched_count=0))  # ScaleByScheduleState.count
         if len(self.param_groups) != 1:
             raise ValueError("OptaxAdam takes one parameter group")
-        self.clip_norm = None if clip_norm is None else float(clip_norm)
-        self.variant = "adabelief" if ada_belief else ("amsgrad" if amsgrad else "adam")
-        self.count = 0        # ScaleByAdamState.count (and its AMSGrad/AdaBelief twins)
-        self.sched_count = 0  # ScaleByScheduleState.count
         for p in self.params:
             state = self.state[p]
             for name in self.moment_names:
                 state[name] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+
+    clip_norm = _group_entry("clip_norm")
+    variant = _group_entry("variant")
+    count = _group_entry("count")
+    sched_count = _group_entry("sched_count")
+
+    def load_state_dict(self, state_dict: dict):
+        """``torch.optim.Optimizer.load_state_dict`` on a copy of
+        ``state_dict``, refusing the state of another variant (its moments
+        are not this optimizer's). torch's own load keeps the dict's tensors
+        where their type and device fit, and the moments are updated in
+        place: without the copy, the optimizer the dict came from and this
+        one would step the same moments."""
+        groups = state_dict.get("param_groups", [])
+        theirs = groups[0].get("variant") if len(groups) == 1 else None
+        if theirs != self.variant:
+            raise ValueError(f"the state dict is of {theirs!r}, this optimizer {self.variant!r}")
+        super().load_state_dict(copy.deepcopy(state_dict))
 
     @property
     def params(self) -> list:

@@ -59,7 +59,14 @@ batch of N·b, as the JAX package's step does under its sharded jit:
   * every draw is made at the global batch's shape from a generator in the
     same state on every rank (or taken from ``draw_schedule`` at that
     shape), and each rank keeps its rows ``[r·b, (r+1)·b)``;
-  * batch norm takes the global batch's moments (``ops/norm.py``);
+  * batch norm takes the global batch's moments (``ops/norm.py``), the
+    prior embedding its norm (``ops/prior.py``), and under
+    ``rrm_full_batch_sequence`` D's RRMs run over the global batch as
+    one sequence, gathered in rank order, each rank keeping its rows
+    (``models/discriminator.py``); in concat mode a rank's pass is
+    ``[fake_r; real_r]``, so the sequence is ``[f_0; r_0; f_1; r_1]`` where
+    the JAX global batch is ``[F; R]``: the RRM has no positional term, so
+    only its sums run in another order;
   * the labels, D's embeddings and proxies are gathered in rank order before
     ``make_mask``, 2C, uniformity and IEA, which every rank computes on the
     whole batch; the gather's backward sums their gradient over the ranks;
@@ -70,9 +77,6 @@ batch of N·b, as the JAX package's step does under its sharded jit:
     losses (hinge terms: the mean of the ranks' means; gathered terms: every
     rank's copy of the one value);
   * the metrics are the ranks' means, the global batch's values.
-
-Under ``rrm_full_batch_sequence`` the RRMs' sequence is the whole batch,
-which a rank does not hold; N > 1 refuses it (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -90,9 +94,8 @@ from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import (cr_diff_augment, diff_augment, sample_cr_draws,
                                        sample_diff_aug_draws)
-from ieagan_torch.ops.norm import global_batch_moments
 from ieagan_torch.parallel.collectives import (all_gather_rows, all_reduce_grads,
-                                               all_reduce_sum)
+                                               all_reduce_sum, global_batch)
 from ieagan_torch.train.optim import lr_schedules, make_optimizers
 from ieagan_torch.train.ortho import apply_ortho_reg
 from ieagan_torch.utils.checkpoint import load_checkpoint
@@ -214,9 +217,6 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     g_lr, d_lr = lr_schedules(config, steps_per_epoch)
     schedule = iter(draw_schedule) if draw_schedule is not None else None
     n_ranks = 1 if mesh is None else mesh.n_data
-    if n_ranks > 1 and bool(config.get("rrm_full_batch_sequence", False)):
-        raise NotImplementedError("rrm_full_batch_sequence with several ranks: the RRMs' "
-                                  "sequence is the global batch (ROADMAP A10)")
     gather = lambda t: all_gather_rows(t, mesh)
 
     def draw(kind, generator, x):
@@ -279,7 +279,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     def train_step(state: TrainState, x, y, generator: torch.Generator | None = None) -> dict:
         if state.G is not G or state.D is not D:
             raise ValueError("this train step was made for other G and D modules")
-        with global_batch_moments(mesh):
+        with global_batch(mesh):
             return step_body(state, x, y, generator)
 
     def step_body(state, x, y, generator):

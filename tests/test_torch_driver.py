@@ -215,7 +215,7 @@ def test_unported_parts_raise(tmp_path):
     data-parallel mesh itself trains (``test_two_rank_driver_run``)."""
     cfg = tiny_config(outputroot=str(tmp_path), run_name="r", **dict(RUN, test_every=2))
     initialize_directories(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="tensor parallelism, ROADMAP §A"):
         run(dict(cfg, mesh="2x2"), device="cpu")
     with pytest.raises(ValueError, match="world of 1"):
         run(dict(cfg, mesh="2"), device="cpu")

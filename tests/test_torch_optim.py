@@ -15,8 +15,12 @@ millionth of one update, lr 3e-2 times a normalized step of order one) after
 every step; measured ~1e-7 relative, and 1.9e-8 absolute where AdaBelief's
 small denominators amplify one ulp of the clipped gradients' global norm
 (summed in another order by XLA). The schedules alone: within rtol 1e-6 of optax's at every
-count.
+count. An optimizer carried over by ``copy.deepcopy``, pickling or
+``state_dict``/``load_state_dict`` continues its step sequence bit for bit.
 """
+
+import copy
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -147,3 +151,75 @@ def test_state_map_both_directions(tiny_d, variant, clip):
     with torch.no_grad():
         for n, p in D.named_parameters():
             p.copy_(params0[n])
+
+
+# (variant, clip_norm, schedule) of the round trips: plain Adam; AMSGrad
+# behind the clip (its third moment, the clip's threshold); AdaBelief under a
+# cosine schedule of one step per epoch (the schedule's count moves the rate)
+ROUND_TRIPS = [("adam", None, "default"), ("amsgrad", 1.0, "default"),
+               ("adabelief", None, "CosAnnealLR")]
+
+
+def _copy_by_state_dict(opt, params, variant, clip):
+    """A fresh optimizer over copies of ``params`` that loads ``opt``'s
+    ``state_dict``."""
+    fresh = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    other = make_optimizer(fresh, 0.5, 0.999, 1e-6, clip_norm=clip, **VARIANTS[variant])
+    other.load_state_dict(opt.state_dict())
+    return other, fresh
+
+
+def _copy_by(how, opt, params, variant, clip):
+    """``opt`` and its parameters carried over by ``how``: a deep copy, a
+    pickle round trip, or a ``state_dict`` loaded into a fresh optimizer."""
+    if how == "state_dict":
+        return _copy_by_state_dict(opt, params, variant, clip)
+    copied = (copy.deepcopy(opt) if how == "deepcopy"
+              else pickle.loads(pickle.dumps(opt)))
+    return copied, copied.params
+
+
+@pytest.mark.parametrize("how", ["deepcopy", "pickle", "state_dict"])
+@pytest.mark.parametrize("case", ROUND_TRIPS, ids=lambda c: c[0])
+def test_carried_optimizer_continues_bit_for_bit(case, how):
+    """Three steps, then the optimizer carried over by ``how``: the copy and
+    the original take three more steps of the same gradients to the same
+    weights, moments and counts, bit for bit (the copy keeps ``clip_norm``,
+    the variant, Adam's count and the schedule's count)."""
+    variant, clip, version = case
+    lr = make_lr_schedule(3e-2, version, 6, 1)
+    shapes = [(6, 7), (5,)]
+    rng = np.random.default_rng(11)
+    params = [torch.nn.Parameter(torch.tensor(rng.standard_normal(s).astype(np.float32)))
+              for s in shapes]
+    opt = make_optimizer(params, 0.5, 0.999, 1e-6, clip_norm=clip, **VARIANTS[variant])
+    grads = _gradients(13, shapes)
+
+    def step(o, ps, i):
+        for p, g in zip(ps, grads[i]):
+            p.grad = torch.tensor(g)
+        o.step(lr)
+
+    for i in range(3):
+        step(opt, params, i)
+    other, other_params = _copy_by(how, opt, params, variant, clip)
+    assert (other.variant, other.clip_norm, other.count, other.sched_count) == (
+        variant, clip, 3, 3)
+    for i in range(3, 6):
+        step(opt, params, i)
+        step(other, other_params, i)
+        for p, q in zip(params, other_params):
+            assert torch.equal(p, q), f"step {i + 1}"
+    for p, q in zip(params, other_params):
+        for m in opt.moment_names:
+            assert torch.equal(opt.state[p][m], other.state[q][m]), m
+    assert (other.count, other.sched_count) == (opt.count, opt.sched_count) == (6, 6)
+
+
+def test_load_state_dict_refuses_another_variant():
+    params = [torch.nn.Parameter(torch.zeros(3))]
+    adam = make_optimizer(params, 0.0, 0.999, 1e-6)
+    for variant in ("amsgrad", "adabelief"):
+        other = make_optimizer(params, 0.0, 0.999, 1e-6, **VARIANTS[variant])
+        with pytest.raises(ValueError, match="of 'adam'"):
+            other.load_state_dict(adam.state_dict())

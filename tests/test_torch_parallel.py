@@ -11,12 +11,17 @@ each (``tests/torch_ranks.py``) against
       metrics, gradients, and every updated leaf (parameters, ``u``, ``sv``,
       BN stats, EMA, Adam moments) of a step within 1e-5, with ``split_D``
       true and false and with ``Con_reg`` (whose second step's metrics are
-      held to it too);
+      held to it too), with activation recompute (``remat``, two steps), and
+      with D's RRMs over the global batch as one sequence
+      (``rrm_full_batch_sequence``, in ``split_D`` and in concat mode with
+      the proxy RRM, where the ranks' sequence is ``[f_0; r_0; f_1; r_1]``
+      and the single process's ``[F; R]``), and with the prior embedding
+      (whose L2 norm spans the global batch, in concat mode ``[F; R]``);
   (b) ``ieagan_tpu.parallel.sharding.make_sharded_train_step`` on a 2-device
       mesh of the conftest's virtual CPU devices, within
       ``tests/test_torch_train_step.py``'s bounds (metrics rtol 2e-3, atol
       2e-5; gradients per leaf max 1e-2, median 1e-3; updates 1e-2), in
-      both ``split_D`` modes;
+      both ``split_D`` modes, with and without the full-batch sequence;
   (c) batch norm alone: G's forward and backward with the global moments
       against one process;
   (d) the two ranks' whole states bit-equal after the steps;
@@ -52,7 +57,6 @@ from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import device_event_transform
 from ieagan_torch.parallel import collectives, distributed, sharding
-from ieagan_torch.train.step import make_train_step
 from tests.helpers import tiny_config
 from tests.test_torch_discriminator import _randomize_params
 from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
@@ -62,9 +66,25 @@ from tests.torch_ranks import bn_forward, run_cases, run_step_rank, spawn_ranks
 CONFIG = tiny_config(RRM_prx_G=True, rdof_dim=4, diff_aug=True, compute_dtype="float32")
 POLICY = CONFIG["diff_aug_policy"]
 CASES = {"split_D": dict(split_D=True), "concat": dict(split_D=False),
-         "con_reg": dict(split_D=True, Con_reg=True)}
-JAX_CASES = ("split_D", "concat")
-CASES_STEPS = {"split_D": 1, "concat": 1, "con_reg": 2}
+         "con_reg": dict(split_D=True, Con_reg=True),
+         "remat": dict(split_D=True, remat=True),
+         "full_batch": dict(split_D=True, rrm_full_batch_sequence=True),
+         "full_batch_concat": dict(split_D=False, rrm_full_batch_sequence=True, RRM_prx_D=True),
+         "prior": dict(split_D=False, prior_embed=True)}
+JAX_CASES = ("split_D", "concat", "full_batch", "full_batch_concat")
+CASES_STEPS = {"split_D": 1, "concat": 1, "con_reg": 2, "remat": 2, "full_batch": 1,
+               "full_batch_concat": 1, "prior": 2}
+# the prior-feature table of the ``prior`` case (module state, set in each
+# process that runs the case)
+PRIOR_TABLE = np.random.default_rng(7).uniform(0.5, 2.0, CONFIG["n_classes"])
+# The keys of a case that change the architecture, each with the seed of its
+# own initial state's biases. A state can put an activation within rounding
+# of a ReLU kink; one process and two ranks then take different
+# subgradients there (at the proxy RRM's architecture with seed 5, one of
+# G's 131,072 pre-ReLU values at the output head flips sign and moves G's
+# gradient by up to 3.1e-3, while the ranks and the JAX step on one and on
+# two devices agree within 7e-6). These seeds put no value there.
+ARCH_SEEDS = {"RRM_prx_D": 1, "prior_embed": 2}
 TOL = 1e-5
 
 
@@ -72,10 +92,30 @@ def _variables(params, state):
     return jax.tree_util.tree_map(np.asarray, {"params": params, "state": state})
 
 
-def _port_state_dict(module_cls, variables, convert):
-    module = module_cls.from_config(CONFIG)
+def _port_state_dict(module_cls, variables, convert, cfg):
+    module = module_cls.from_config(cfg)
     sd = convert(variables, module.state_dict())
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def _jax_state(cfg, rng):
+    """The JAX train state of ``cfg`` from PRNGKey(0), biases and SA gammas
+    drawn from ``rng``."""
+    state = jax_init(JaxG.from_config(cfg), JaxD.from_config(cfg), cfg, jax.random.PRNGKey(0))
+    params_G = _randomize_params(state.params_G, rng)
+    return state.replace(params_G=params_G, params_D=_randomize_params(state.params_D, rng),
+                         params_G_ema=jax.tree_util.tree_map(jnp.copy, params_G))
+
+
+def _port_weights(state, cfg):
+    """G, D and G_ema of a JAX state as the port's state dicts."""
+    return {
+        "G": _port_state_dict(Generator, _variables(state.params_G, state.state_G),
+                              generator_state_from_flax, cfg),
+        "D": _port_state_dict(Discriminator, _variables(state.params_D, state.state_D),
+                              discriminator_state_from_flax, cfg),
+        "G_ema": _port_state_dict(Generator, _variables(state.params_G_ema, state.state_G_ema),
+                                  generator_state_from_flax, cfg)}
 
 
 def _rows(item, rows):
@@ -118,18 +158,16 @@ def _jax_mesh_step(state, cfg, x, y, z, rdof, key, mesh):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case through two spawned ranks and one process, and the JAX
-    mesh step of the JAX cases; returns (initial JAX state, JAX results by
-    case, the ranks' results, the single process's, the control's)."""
+    mesh step of the JAX cases; returns (initial JAX states by case, JAX
+    results by case, the ranks' results, the single process's, the
+    control's). A case that changes the architecture (``ARCH_SEEDS``) starts
+    from a state of its own, every other case from one shared state."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 virtual devices")
     es, epb = CONFIG["n_classes"], CONFIG["events_per_batch"]
     b = es * epb
     rng = np.random.default_rng(0)
-    jG, jD = JaxG.from_config(CONFIG), JaxD.from_config(CONFIG)
-    state = jax_init(jG, jD, CONFIG, jax.random.PRNGKey(0))
-    params_G = _randomize_params(state.params_G, rng)
-    state = state.replace(params_G=params_G, params_D=_randomize_params(state.params_D, rng),
-                          params_G_ema=jax.tree_util.tree_map(jnp.copy, params_G))
+    state = _jax_state(CONFIG, rng)
     x = rng.uniform(-1, 1, (b, 32, 32, 1)).astype(np.float32)
     y = np.tile(np.arange(es, dtype=np.int32), epb)
     z = [rng.standard_normal((b, CONFIG["dim_z"])).astype(np.float32) for _ in range(2)]
@@ -141,23 +179,24 @@ def runs(tmp_path_factory):
                 jax_draws(jax.random.fold_in(kaug_d, 7), x.shape, POLICY),
                 z[1], rdof[1], jax_draws(kaug_g, x.shape, POLICY)]
 
+    configs = {name: dict(CONFIG, **case) for name, case in CASES.items()}
+    seeds = {name: next((s for k, s in ARCH_SEEDS.items() if cfg[k]), None)
+             for name, cfg in configs.items()}
+    states = {name: state if seeds[name] is None
+              else _jax_state(cfg, np.random.default_rng(seeds[name]))
+              for name, cfg in configs.items()}
+
     mesh = jax_make_mesh(n_data=2)
-    jax_results = {name: _jax_mesh_step(state, dict(CONFIG, **CASES[name]), x, y, z, rdof,
-                                        key, mesh)
+    jax_results = {name: _jax_mesh_step(states[name], configs[name], x, y, z, rdof, key, mesh)
                    for name in JAX_CASES}
 
-    weights = {
-        "G": _port_state_dict(Generator, _variables(state.params_G, state.state_G),
-                              generator_state_from_flax),
-        "D": _port_state_dict(Discriminator, _variables(state.params_D, state.state_D),
-                              discriminator_state_from_flax),
-        "G_ema": _port_state_dict(Generator, _variables(state.params_G_ema, state.state_G_ema),
-                                  generator_state_from_flax)}
+    weights = _port_weights(state, CONFIG)
     xt, yt = torch.tensor(x), torch.tensor(y).long()
-    cases = [dict(weights, config=dict(CONFIG, **CASES[name]), x=xt, y=yt,
+    cases = [dict(_port_weights(states[name], cfg), config=cfg, x=xt, y=yt,
                   **(dict(steps=1, schedule=[schedule]) if name in JAX_CASES
-                     else dict(steps=2, seed=3)))
-             for name in CASES]
+                     else dict(steps=2, seed=3)),
+                  **(dict(prior=PRIOR_TABLE) if cfg["prior_embed"] else {}))
+             for name, cfg in configs.items()]
     g = torch.Generator().manual_seed(1)
     bn = dict(config=CONFIG, G=weights["G"], z=torch.randn((b, CONFIG["dim_z"]), generator=g),
               y=yt, rdof=torch.randn((b, 4), generator=g),
@@ -170,7 +209,7 @@ def runs(tmp_path_factory):
     half = slice(0, b // 2)
     control = run_cases([dict(cases[0], x=xt[half], y=yt[half],
                               schedule=[[_rows(item, half) for item in schedule]])], None)[0]
-    return state, jax_results, ranks, single, control
+    return states, jax_results, ranks, single, control
 
 
 def _leaf_errors(got: dict, want: dict):
@@ -193,15 +232,9 @@ def _case(runs, name):
     return ranks[0]["cases"][i], ranks[1]["cases"][i], single["cases"][i]
 
 
-def _initial(runs, net):
-    """The port's state dict of ``net`` before the steps."""
-    state = runs[0]
-    if net == "D":
-        return _port_state_dict(Discriminator, _variables(state.params_D, state.state_D),
-                                discriminator_state_from_flax)
-    which = (state.params_G, state.state_G) if net == "G" else (state.params_G_ema,
-                                                                state.state_G_ema)
-    return _port_state_dict(Generator, _variables(*which), generator_state_from_flax)
+def _initial(runs, name, net):
+    """The port's state dict of ``net`` before the steps of case ``name``."""
+    return _port_weights(runs[0][name], dict(CONFIG, **CASES[name]))[net]
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -238,9 +271,9 @@ def test_two_ranks_updated_state_equals_one_process(runs, name, net):
     lr = CONFIG[f"{net}_lr"] if net != "G_ema" else CONFIG["G_lr"]
     params = set() if net == "G_ema" else {
         n for n, _ in (Generator if net == "G" else Discriminator).from_config(
-            CONFIG).named_parameters()}
+            dict(CONFIG, **CASES[name])).named_parameters()}
     grads = {} if net == "G_ema" else want["grads"][net]
-    before = _initial(runs, net)
+    before = _initial(runs, name, net)
     for k, w in want["state"][net].items():
         g = got["state"][net][k]
         if k in params and float(grads[k].norm()) < 1e-5:
@@ -272,7 +305,8 @@ def test_two_ranks_match_jax_mesh_step(runs, name):
     """Metrics, gradients leaf for leaf, and the updates of G and D against
     the JAX package's sharded step on a 2-device mesh, within
     ``tests/test_torch_train_step.py``'s bounds."""
-    state, jax_results, *_ = runs
+    states, jax_results, *_ = runs
+    state = states[name]
     got = _case(runs, name)[0]
     new_state, jmets = jax_results[name]
     for k, v in got["metrics"][0].items():
@@ -346,7 +380,7 @@ def test_make_mesh_spans_the_world_and_refuses_a_model_axis():
     refused."""
     mesh = port_mesh.make_mesh()
     assert (mesh.n_data, mesh.rank, mesh.shape) == (1, 0, {"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="tensor parallelism, ROADMAP §A"):
         port_mesh.make_mesh(1, 2)
     with pytest.raises(ValueError, match="world of 1"):
         port_mesh.make_mesh(2)
@@ -354,18 +388,6 @@ def test_make_mesh_spans_the_world_and_refuses_a_model_axis():
     assert collectives.all_reduce_sum(x, mesh) is x
     assert collectives.all_gather_rows(x, mesh) is x
     assert sharding.host_local_batch(mesh, x) is x
-
-
-def test_full_batch_rrm_sequence_is_refused_over_several_ranks():
-    """Under ``rrm_full_batch_sequence`` the RRMs' sequence is the global
-    batch, which no rank holds: a step over two ranks is refused before it
-    runs (one rank takes it)."""
-    cfg = dict(CONFIG, rrm_full_batch_sequence=True)
-    G, D = Generator.from_config(cfg), Discriminator.from_config(cfg)
-    two = port_mesh.Mesh(n_data=2, rank=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        make_train_step(G, D, cfg, mesh=two)
-    make_train_step(G, D, cfg, mesh=port_mesh.make_mesh())
 
 
 def test_device_transform_noise_is_the_global_batch_rows():

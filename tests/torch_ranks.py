@@ -49,49 +49,64 @@ def run_cases(cases: list, mesh) -> list:
     """Each case of a job through ``make_sharded_train_step`` on ``mesh``
     (``None``: one process on the whole batch). A case: ``config``, the
     initial ``G``/``D``/``G_ema`` state dicts, global ``x`` and ``y``,
-    ``steps``, and either ``schedule`` (global draws, one list per step) or
-    ``seed`` (a generator in the same state on every rank). Returns per case
-    the metrics of every step; the gradients of the first step and the state
-    dicts and Adam moments after it; and the digest of the final state."""
+    ``steps``, either ``schedule`` (global draws, one list per step) or
+    ``seed`` (a generator in the same state on every rank), and optionally
+    ``prior``, the prior-feature table the case runs with (the process's
+    own table is restored after it). Returns per case the metrics of every
+    step; the gradients of the first step and the state dicts and Adam
+    moments after it; and the digest of the final state."""
+    from ieagan_torch.ops import prior
+
+    results = []
+    for case in cases:
+        table = prior._FEATURES
+        if "prior" in case:
+            prior.set_prior_features(case["prior"])
+        try:
+            results.append(_run_case(case, mesh))
+        finally:
+            prior._FEATURES = table
+    return results
+
+
+def _snapshot(state, mets) -> dict:
+    return {
+        "grads": {"G": mets["_grads_G"], "D": mets["_grads_D"]},
+        "state": {net: {k: v.clone() for k, v in getattr(state, net).state_dict().items()}
+                  for net in ("G", "D", "G_ema")},
+        "moments": {net: {n: {m: getattr(state, f"opt_{net}").state[p][m].clone()
+                              for m in ("mu", "nu")}
+                          for n, p in getattr(state, net).named_parameters()}
+                    for net in ("G", "D")}}
+
+
+def _run_case(case: dict, mesh) -> dict:
     from ieagan_torch.models.discriminator import Discriminator
     from ieagan_torch.models.generator import Generator
     from ieagan_torch.parallel.sharding import host_local_batch, make_sharded_train_step
     from ieagan_torch.train.optim import make_optimizers
     from ieagan_torch.train.step import TrainState
 
-    def snapshot(state, mets):
-        return {
-            "grads": {"G": mets["_grads_G"], "D": mets["_grads_D"]},
-            "state": {net: {k: v.clone() for k, v in getattr(state, net).state_dict().items()}
-                      for net in ("G", "D", "G_ema")},
-            "moments": {net: {n: {m: getattr(state, f"opt_{net}").state[p][m].clone()
-                                  for m in ("mu", "nu")}
-                              for n, p in getattr(state, net).named_parameters()}
-                        for net in ("G", "D")}}
-
-    results = []
-    for case in cases:
-        cfg = case["config"]
-        G, D = Generator.from_config(cfg), Discriminator.from_config(cfg)
-        G_ema = Generator.from_config(cfg)
-        for module, name in ((G, "G"), (D, "D"), (G_ema, "G_ema")):
-            module.load_state_dict(case[name], strict=True)
-        G_ema.eval().requires_grad_(False)
-        state = TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg))
-        x, y = host_local_batch(mesh, case["x"], case["y"])
-        generator = torch.Generator().manual_seed(case.get("seed", 0))
-        result = {"metrics": []}
-        for i in range(case["steps"]):
-            schedule = case["schedule"][i] if "schedule" in case else None
-            step = make_sharded_train_step(G, D, cfg, mesh, draw_schedule=schedule,
-                                           capture_grads=i == 0)
-            mets = step(state, x, y, generator)
-            result["metrics"].append({k: v for k, v in mets.items() if not k.startswith("_")})
-            if i == 0:
-                result.update(snapshot(state, mets))
-        result["digest"] = state_digest(state)
-        results.append(result)
-    return results
+    cfg = case["config"]
+    G, D = Generator.from_config(cfg), Discriminator.from_config(cfg)
+    G_ema = Generator.from_config(cfg)
+    for module, name in ((G, "G"), (D, "D"), (G_ema, "G_ema")):
+        module.load_state_dict(case[name], strict=True)
+    G_ema.eval().requires_grad_(False)
+    state = TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg))
+    x, y = host_local_batch(mesh, case["x"], case["y"])
+    generator = torch.Generator().manual_seed(case.get("seed", 0))
+    result = {"metrics": []}
+    for i in range(case["steps"]):
+        schedule = case["schedule"][i] if "schedule" in case else None
+        step = make_sharded_train_step(G, D, cfg, mesh, draw_schedule=schedule,
+                                       capture_grads=i == 0)
+        mets = step(state, x, y, generator)
+        result["metrics"].append({k: v for k, v in mets.items() if not k.startswith("_")})
+        if i == 0:
+            result.update(_snapshot(state, mets))
+    result["digest"] = state_digest(state)
+    return result
 
 
 def bn_forward(job: dict, mesh) -> dict:
@@ -100,15 +115,14 @@ def bn_forward(job: dict, mesh) -> dict:
     its output (the mean of ``out * w``): output rows, every BN buffer,
     every parameter gradient."""
     from ieagan_torch.models.generator import Generator
-    from ieagan_torch.ops.norm import global_batch_moments
-    from ieagan_torch.parallel.collectives import all_reduce_grads
+    from ieagan_torch.parallel.collectives import all_reduce_grads, global_batch
     from ieagan_torch.parallel.sharding import host_local_batch
 
     G = Generator.from_config(job["config"])
     G.load_state_dict(job["G"], strict=True)
     G.train()
     z, y, rdof, w = host_local_batch(mesh, job["z"], job["y"], job["rdof"], job["w"])
-    with global_batch_moments(mesh):
+    with global_batch(mesh):
         out = G(z, y, rdof)
     # mean(out * w) over the global batch is the mean of the ranks' means,
     # whose gradient all_reduce_grads gives from each rank's
