@@ -111,6 +111,17 @@ Phases, each timed on a line of its own:
    ``remat_D=True``, and at 1 event with ``True``: peak memory, ms per step,
    B1/B2 launches per step (those of phase 5: D's attention is in no
    segment, and the flagship's G has none).
+13. the user tools, each through ``main(argv)`` as ``python -m
+   ieagan_torch...`` runs it: (a) ``deploy.create_gan_digits`` from best0
+   (``--tag best0``), 8 events at 4 a call into npz shards: the sha256
+   line, the shard, B1's launches at RR_G, events per second; (b)
+   ``eval.mint_stats --host-resize`` on phase 9's PNG tree with the
+   fallback weights, equal to ``make_custom_stats``; (c) ``eval.moments_check``
+   and (d) ``eval.kid_eval`` on a run dir holding best0, 400 images against
+   (b)'s stats: ``kid_eval``'s FID equal to ``moments_check``'s host FID,
+   seconds by part; (e) ``eval.finetune_inception`` on the PNG tree, its
+   first step against the CPU's, the written backbone read back into
+   ``FeatureExtractor`` bit-equal, ms per step and peak memory.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -2461,6 +2472,352 @@ def parallel_phase(torch, np):
     return entry_ms, rank0
 
 
+# Phase 13: the user tools, each through its main(argv) as
+# ``python -m ieagan_torch...`` runs it. The proof tools read 400 images of
+# best0 (two generator calls of fid_gen_chunks 8 events); each FID carries
+# the host's 2048-d sqrtm. The finetune runs 24 steps of 4 images of phase
+# 9's PNG tree (80 images, 8 held out: two whole validation batches), f32
+# with TF32 off. Its first step is held to the same step on the CPU: the
+# loss within 1e-4 relative; Adam's update within 1e-3 relative per leaf on
+# the elements whose gradient the two sides give the same sign, a magnitude
+# of 1e-5 or more (1,000 times Adam's eps) and at least 10 times their
+# difference, where the update is +-lr within 1e-4 on both sides; every
+# element within twice the learning rate (a gradient whose sign the rounding
+# decides takes Adam's whole step either way). The gradients are read
+# against the same step's in f64 on the card: at 299x299 a batch-norm
+# field's gradient sums ~10^5 terms that cancel, and the CPU's own f32 step
+# is only ~1e-3 (median per leaf) from f64 there, so the card's f32 step is
+# held to TOOLS_F32_RATIO times the CPU's distance from f64 (max and median
+# per leaf); a control (the f64 gradient of another batch) must break it.
+TOOLS_EVENTS, TOOLS_EVENTS_PER_CALL = 8, 4
+TOOLS_FID_IMAGES = 400
+TOOLS_FID_REL = 1e-6
+TOOLS_FINETUNE = dict(steps=24, batch=4, lr=1e-4)
+TOOLS_STEP_LOSS_RTOL, TOOLS_STEP_UPDATE_REL, TOOLS_F32_RATIO = 1e-4, 1e-3, 4.0
+
+
+class Tee:
+    """stdout that also keeps what is written."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def run_tool(main, argv):
+    """``main(argv)`` of a tool; returns its result and its stdout lines."""
+    import contextlib
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = main(argv)
+    return result, "".join(tee.parts).splitlines()
+
+
+def tools_production(torch, np, root, fwd):
+    """13a: ``create_gan_digits`` from best0, 8 events at 4 a call into npz
+    shards: the sha256 line, one shard of 8 events, B1's launches at RR_G
+    (the producer's block is 4 chunks of 4 events, so 8 events take one
+    block of 4 generator calls), events per second of the whole call."""
+    import hashlib
+    from ieagan_torch.deploy import create_gan_digits
+    from ieagan_torch.utils.flax_msgpack import resolve_generator_checkpoint
+
+    out = os.path.join(root, "digits")
+    resolved = resolve_generator_checkpoint(CHECKPOINT, tag="best0")
+    with open(resolved, "rb") as fp:
+        digest = hashlib.sha256(fp.read()).hexdigest()
+    fwd.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n, lines = run_tool(create_gan_digits.main, [
+        out, str(TOOLS_EVENTS), "--checkpoint", CHECKPOINT, "--tag", "best0",
+        "--events-per-call", str(TOOLS_EVENTS_PER_CALL), "--seed", "0"])
+    wall = time.perf_counter() - t
+    launches = fwd.launches
+    chunks = 4  # EventProducer's default, as the JAX producer's
+    calls = -(-TOOLS_EVENTS // (TOOLS_EVENTS_PER_CALL * chunks)) * chunks
+    shards = sorted(os.listdir(out))
+    shard = np.load(os.path.join(out, shards[0])) if shards else None
+    print(f"13a create_gan_digits: {n} events in {wall:.2f} s ({n / wall:.2f} events/s, "
+          f"restore included), {len(shards)} shard(s), n_events "
+          f"{None if shard is None else int(shard['n_events'])}; B1 {launches} launches at "
+          f"RR_G for {calls} generator calls", flush=True)
+    want = f"checkpoint {os.path.basename(resolved)} sha256: {digest}"
+    if lines[0] != want or lines[-1] != f"produced {TOOLS_EVENTS} events -> {out}":
+        raise SystemExit(f"create_gan_digits printed {lines[0]!r} ... {lines[-1]!r}")
+    if not (n == TOOLS_EVENTS and shards == ["events_00000.npz"]
+            and int(shard["n_events"]) == TOOLS_EVENTS
+            and all(len(shard[f"coords_{i}"]) == len(shard[f"charges_{i}"]) > 0
+                    for i in range(TOOLS_EVENTS))):
+        raise SystemExit(f"create_gan_digits: {n} events, shards {shards}")
+    if launches != calls:
+        raise SystemExit(f"create_gan_digits: B1 launched {launches} times for {calls} calls")
+    return {"events_per_s": n / wall, "launches": launches}
+
+
+def tools_stats(torch, np, tree):
+    """13b: ``mint_stats --host-resize`` on phase 9's PNG tree equals phase
+    9's ``make_custom_stats``/``make_custom_kid_stats`` (the fallback
+    weights, host resize) on the same tree."""
+    from ieagan_torch.eval import fid, mint_stats
+
+    extractor = fid.FeatureExtractor(device="cuda")
+    want = {"fid": fid.make_custom_stats("phase9", tree, extractor=extractor),
+            "kid": fid.make_custom_kid_stats("phase9", tree, extractor=extractor)}
+    t = time.perf_counter()
+    paths, _ = run_tool(mint_stats.main, ["pngtree", tree, "--host-resize"])
+    mint_s = time.perf_counter() - t
+    worst = 0.0
+    for kind in ("fid", "kid"):
+        got, ref = np.load(paths[kind]), np.load(want[kind])
+        if sorted(got.files) != sorted(ref.files):
+            raise SystemExit(f"mint_stats {kind}: keys {got.files}, phase 9's {ref.files}")
+        for key in ref.files:
+            if got[key].shape != ref[key].shape:
+                raise SystemExit(f"mint_stats {kind} {key}: shape {got[key].shape}")
+            worst = max(worst, float(np.abs(got[key] - ref[key]).max()
+                                     / np.abs(ref[key]).max()))
+    print(f"13b mint_stats on phase 9's tree ({len(np.load(paths['kid'])['feats'])} images): "
+          f"{mint_s:.2f} s; against phase 9's make_custom_stats, largest difference "
+          f"{worst:.3e} of the largest entry (bound 1e-6)", flush=True)
+    if not worst <= 1e-6:
+        raise SystemExit("mint_stats disagrees with make_custom_stats")
+    return mint_s
+
+
+def tools_run_dir(root):
+    """A run dir in the driver's layout holding best0 as G_ema_best0, its
+    config the flagship's with the FID test's dataset set to phase 9's tree."""
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    run = os.path.join(root, "run_best0")
+    os.makedirs(os.path.join(run, "weights"))
+    os.symlink(os.path.join(CHECKPOINT, "G_ema_best0.msgpack"),
+               os.path.join(run, "weights", "G_ema_best0.msgpack"))
+    with open(os.path.join(run, "2000-01-01-00-00-00_config.json"), "w") as fp:
+        json.dump(dict(DEFAULT_CONFIG, fid_dataset_name="pngtree", seed=0), fp)
+    return run
+
+
+def tools_proof(torch, np, run, fwd):
+    """13c-d: ``moments_check`` then ``kid_eval`` on the run dir at 400
+    images against 13b's stats: the JSON lines' keys, ``kid_eval``'s FID
+    equal to ``moments_check``'s host FID within 1e-6 relative (the same
+    seed, images and host path), the device moments' FID beside it;
+    ``kid_eval``'s seconds by part and its B1 launches."""
+    from ieagan_torch.eval import kid_eval, moments_check
+
+    argv = ["--run-dir", run, "--tag", "best0", "--num", str(TOOLS_FID_IMAGES)]
+    t = time.perf_counter()
+    mom, lines = run_tool(moments_check.main, argv)
+    mom_s = time.perf_counter() - t
+    if json.loads(lines[-1]) != mom or list(mom) != ["fid_device_f32", "fid_host_f64",
+                                                     "rel_diff", "num"]:
+        raise SystemExit(f"moments_check printed {lines[-1]!r}")
+    fwd.launches = 0
+    t = time.perf_counter()
+    kid, lines = run_tool(kid_eval.main, argv)
+    kid_s = time.perf_counter() - t
+    launches = fwd.launches
+    line = json.loads(lines[-1])
+    if list(line) != ["tag", "num", "fid", "kid_x1e3", "kid_floor_x1e3", "dataset"] or any(
+            line[k] != kid[k] for k in line):
+        raise SystemExit(f"kid_eval printed {lines[-1]!r}")
+    gap = abs(kid["fid"] - mom["fid_host_f64"]) / abs(mom["fid_host_f64"])
+    secs = kid["seconds"]
+    print(f"13c moments_check: {json.dumps(mom)} in {mom_s:.2f} s; 13d kid_eval: "
+          f"{json.dumps(line)} in {kid_s:.2f} s (generation {secs['generation']:.2f}, "
+          f"features {secs['features']:.2f}, host f64 sqrtm {secs['sqrtm']:.2f}, KID "
+          f"{secs['kid']:.2f}); kid_eval's FID against moments_check's host FID "
+          f"{gap:.3e} relative (bound {TOOLS_FID_REL}); B1 {launches} launches in kid_eval, "
+          "bf16", flush=True)
+    if not (mom["num"] == line["num"] == TOOLS_FID_IMAGES and np.isfinite(
+            [mom["fid_device_f32"], mom["fid_host_f64"], line["kid_x1e3"],
+             line["kid_floor_x1e3"]]).all() and line["fid"] > 0):
+        raise SystemExit("the proof tools' numbers are not finite")
+    if not gap <= TOOLS_FID_REL:
+        raise SystemExit("kid_eval's FID differs from moments_check's host FID")
+    if launches == 0:
+        raise SystemExit("kid_eval launched no B1")
+    return {"kid_s": kid_s, "seconds": secs, "rel_diff": mom["rel_diff"],
+            "launches": launches}
+
+
+def inception_trunk(features, x):
+    """``InceptionV3Features.forward`` in ``x``'s type (the module casts to
+    f32): the f64 yardstick of phase 13e."""
+    from ieagan_torch.eval.inception import max_pool3s2
+    x = features.Conv2d_2b_3x3(features.Conv2d_2a_3x3(features.Conv2d_1a_3x3(x)))
+    x = max_pool3s2(features.Conv2d_4a_3x3(features.Conv2d_3b_1x1(max_pool3s2(x))))
+    for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a", "Mixed_6b", "Mixed_6c",
+                 "Mixed_6d", "Mixed_6e", "Mixed_7a", "Mixed_7b", "Mixed_7c"):
+        x = getattr(features, name)(x)
+    return x.mean(dim=(2, 3))
+
+
+def finetune_first_step(torch, np, tree):
+    """The finetune's first step on the card and on the CPU from one init on
+    the same batch, its gradients against the step's in f64 (13e's bounds)."""
+    import copy
+    from ieagan_torch.eval import finetune_inception as ft
+    from ieagan_torch.eval.fid import f32_products
+    from ieagan_torch.train.optim import OptaxAdam
+
+    imgs, labels, n_classes = ft.load_raw_images(tree, 2)
+    imgs, labels = torch.from_numpy(imgs), torch.from_numpy(labels)
+    train_idx, _ = ft.split(len(imgs), 0.1, 0)
+    batch = TOOLS_FINETUNE["batch"]
+    idx, other = (torch.as_tensor(train_idx[i * batch:(i + 1) * batch]) for i in (0, 1))
+    lr = ft.cosine_decay(TOOLS_FINETUNE["lr"], TOOLS_FINETUNE["steps"])
+    res = {}
+    init = ft.build_classifier(n_classes, 0, None, "cpu")  # one init for every side
+    before = {k: p.detach().clone() for k, p in init.named_parameters()}
+    with f32_products():
+        for device in ("cuda", "cpu"):
+            model = copy.deepcopy(init).to(device)
+            opt = OptaxAdam(model.parameters(), **ft.ADAM)
+            metrics = ft.train_step(model, opt, imgs.to(device), labels.to(device),
+                                    idx.to(device), lr)
+            res[device] = (float(metrics[0]), before, {
+                k: (p.detach().cpu(), p.grad.cpu()) for k, p in model.named_parameters()})
+            del model, opt
+        model = init.to("cuda").double()
+        for name, rows in (("f64", idx), ("control", other)):
+            x, y = ft.batch_from_idx(imgs.cuda(), labels.cuda(), rows.cuda())
+            model.zero_grad()
+            loss = torch.nn.functional.cross_entropy(
+                model.fc(inception_trunk(model.features, x.double())), y.long())
+            loss.backward()
+            res[name] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+        del model
+    (loss_gpu, before, gpu), (loss_cpu, _, cpu) = res["cuda"], res["cpu"]
+
+    def per_leaf(got, want):
+        gaps = {k: float((got[k].double() - w).norm() / w.norm()) for k, w in want.items()
+                if float(w.norm()) > 0}
+        return max(gaps.values()), float(np.median(list(gaps.values()))), max(gaps, key=gaps.get)
+
+    grads = {name: {k: g for k, (_, g) in side.items()} for name, side in (("gpu", gpu),
+                                                                           ("cpu", cpu))}
+    gpu64, cpu64 = (per_leaf(grads[n], res["f64"][1]) for n in ("gpu", "cpu"))
+    control = per_leaf(grads["gpu"], res["control"][1])
+    loss_gap = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    update_gap, element_gap, flipped, total = 0.0, 0.0, 0, 0
+    for k, (p_cpu, g_cpu) in cpu.items():
+        p_gpu, g_gpu = gpu[k]
+        live = ((g_gpu * g_cpu > 0) & (g_cpu.abs() >= 1e-5)
+                & (g_cpu.abs() >= 10 * (g_gpu - g_cpu).abs()))
+        flipped += int((g_gpu * g_cpu < 0).sum())
+        total += g_cpu.numel()
+        d_gpu, d_cpu = (p_gpu - before[k])[live], (p_cpu - before[k])[live]
+        if live.any():
+            update_gap = max(update_gap, float((d_gpu - d_cpu).norm() / d_cpu.norm()))
+        element_gap = max(element_gap, float((p_gpu - p_cpu).abs().max()))
+    print(f"13e first finetune step, card against CPU ({len(cpu)} leaves, batch {batch}): loss "
+          f"{loss_gpu:.6f} / {loss_cpu:.6f}, f64 {res['f64'][0]:.6f} ({loss_gap:.3e} "
+          f"relative, bound {TOOLS_STEP_LOSS_RTOL}); gradient per leaf against the f64 step: "
+          f"card f32 max {gpu64[0]:.3e} ({gpu64[2]}), median {gpu64[1]:.3e}; CPU f32 max "
+          f"{cpu64[0]:.3e} ({cpu64[2]}), median {cpu64[1]:.3e} (bound: {TOOLS_F32_RATIO}x "
+          f"the CPU's); control (another batch in f64) max {control[0]:.3e}, median "
+          f"{control[1]:.3e}; {flipped} of {total} gradient elements of opposite sign on the "
+          f"card and the CPU; Adam's update of the sign-settled elements per leaf max "
+          f"{update_gap:.3e} (bound {TOOLS_STEP_UPDATE_REL}); any element {element_gap:.3e} "
+          f"(bound {2 * lr(0):.1e})", flush=True)
+    within = lambda a, b: a[0] <= TOOLS_F32_RATIO * b[0] and a[1] <= TOOLS_F32_RATIO * b[1]
+    if not (loss_gap <= TOOLS_STEP_LOSS_RTOL and within(gpu64, cpu64)
+            and update_gap <= TOOLS_STEP_UPDATE_REL and element_gap <= 2 * lr(0)):
+        raise SystemExit("the finetune's first step on the card disagrees with the CPU's")
+    if within(control, cpu64):
+        raise SystemExit("the finetune step's control kept the bound: it cannot tell batches "
+                         "apart")
+
+
+def tools_finetune(torch, np, tree, root):
+    """13e: ``finetune_inception`` on phase 9's tree from the fallback
+    weights: the first step against the CPU's, then the whole run through
+    ``main``; the written msgpack read back through ``load_inception_state``
+    into ``FeatureExtractor`` equals the trained trunk, bit for bit, and
+    gives finite features; ms per step and peak memory."""
+    from ieagan_torch.eval import finetune_inception as ft
+    from ieagan_torch.eval.fid import FeatureExtractor
+
+    finetune_first_step(torch, np, tree)
+    out = os.path.join(root, "inception_finetuned.msgpack")
+    trained = {}
+    write = ft.write_features
+
+    def kept(model, path):  # observation only: keep the trunk that is written
+        trained.update({k: v.detach().cpu().clone()
+                        for k, v in model.features.state_dict().items()})
+        write(model, path)
+
+    ft.write_features = kept
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, lines = run_tool(ft.main, [
+            "--dataroot", tree, "--out", out, "--steps", str(TOOLS_FINETUNE["steps"]),
+            "--batch", str(TOOLS_FINETUNE["batch"]), "--lr", str(TOOLS_FINETUNE["lr"]),
+            "--max-events", "2", "--val-frac", "0.1", "--seed", "0"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        ft.write_features = write
+    extractor = FeatureExtractor(out, device="cuda")
+    same = all(torch.equal(v.cpu(), trained[k])
+               for k, v in extractor.model.state_dict().items())
+    feats = extractor.features(torch.rand((2, 3, 299, 299), device="cuda"))
+    print(f"13e finetune_inception: {TOOLS_FINETUNE['steps']} steps of "
+          f"{TOOLS_FINETUNE['batch']}: {res['step_ms']:.2f} ms per step (median of steps 2 "
+          f"on, host clock after synchronize), peak {peak:.2f} GiB; last step loss/acc "
+          f"{res['loss_acc']}; validation accuracy {res['val_acc']:.4f} over {res['n_val']} "
+          f"images; the written backbone read back bit-equal: {same}, features finite: "
+          f"{bool(torch.isfinite(feats).all())}", flush=True)
+    if not (same and len(trained) == len(extractor.model.state_dict()) and res["n_val"] > 0
+            and np.isfinite(res["loss_acc"]).all() and bool(torch.isfinite(feats).all())
+            and lines[-1] == f"saved feature-extractor params to {out}"):
+        raise SystemExit("finetune_inception's run or its backbone file failed its checks")
+    return {"step_ms": res["step_ms"], "peak_gib": peak}
+
+
+def tools_phase(torch, np):
+    """Phase 13: the user tools through ``main(argv)``."""
+    import tempfile
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.kernels.flash_attention import attention_fwd
+
+    out = {}
+    stats_env = os.environ.get("IEAGAN_STATS_DIR")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["IEAGAN_STATS_DIR"] = os.path.join(root, "stats")
+        try:
+            t0 = time.perf_counter()
+            out["production"] = tools_production(torch, np, root, attention_fwd)
+            phase("13a create_gan_digits", t0)
+            tree = write_png_tree(np, os.path.join(root, "pxd"), DEFAULT_CONFIG)
+            t0 = time.perf_counter()
+            out["mint_s"] = tools_stats(torch, np, tree)
+            phase("13b mint_stats", t0)
+            t0 = time.perf_counter()
+            out["proof"] = tools_proof(torch, np, tools_run_dir(root), attention_fwd)
+            phase("13c-d moments_check, kid_eval", t0)
+            t0 = time.perf_counter()
+            out["finetune"] = tools_finetune(torch, np, tree, root)
+            phase("13e finetune_inception", t0)
+        finally:
+            if stats_env is None:
+                os.environ.pop("IEAGAN_STATS_DIR", None)
+            else:
+                os.environ["IEAGAN_STATS_DIR"] = stats_env
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2549,6 +2906,10 @@ def main():
     remat_rows = remat_memory(torch, np, driver_ms, driver_peak)
     phase("12b recompute's memory and time", t0)
 
+    t0 = time.perf_counter()
+    tools = tools_phase(torch, np)
+    phase("13 user tools", t0)
+
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
                            and r["dtype"] == "float32")
@@ -2631,6 +2992,20 @@ def main():
                 "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
                          "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
                          "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
+    # Phase 13's site: the generator's RRM through the user tools; launches
+    # from create_gan_digits (f32, best0), kid_eval's beside them (bf16)
+    r, r16 = (pick_site(rows, "RR_G", [2, 40, 40, 64, 64], t) for t in ("float32", "bfloat16"))
+    kernels.append({
+        "name": "attention_fwd (B1) at RR_G through the user tools", "route": "cuda",
+        "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
+        "launches": tools["production"]["launches"], "max_abs_err": r["max_abs_err_o"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "site": "RR_G f32 2x40x40x64x64 (phase 13a create_gan_digits, 8 events at 4 a call)",
+        "launches_kid_eval": tools["proof"]["launches"],
+        "bf16": {"max_abs_err": r16["max_abs_err_o"], "ms": r16["ms"],
+                 "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+                 "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
     kernels.append({
         "name": "attention_fwd (B1) at PEGAN's G attention", "route": "cuda",
         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
@@ -2653,6 +3028,14 @@ def main():
           "bf16 driver step (events, remat: peak GiB, ms per step): " + "; ".join(
               f"{r['events']}, {r['remat']}: {r['peak_gib']:.2f}, "
               + "/".join(f"{t:.1f}" for t in r["ms"]) for r in remat_rows), flush=True)
+    secs = tools["proof"]["seconds"]
+    print(f"phase 13: create_gan_digits {tools['production']['events_per_s']:.2f} events/s "
+          f"(B1 {tools['production']['launches']} launches at RR_G); kid_eval of "
+          f"{TOOLS_FID_IMAGES} images {tools['proof']['kid_s']:.2f} s (generation "
+          f"{secs['generation']:.2f}, features {secs['features']:.2f}, sqrtm "
+          f"{secs['sqrtm']:.2f}); moments_check rel_diff {tools['proof']['rel_diff']:.3e}; "
+          f"finetune_inception {tools['finetune']['step_ms']:.2f} ms per step of "
+          f"{TOOLS_FINETUNE['batch']}, peak {tools['finetune']['peak_gib']:.2f} GiB", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

@@ -34,6 +34,30 @@ import numpy as np
 import torch
 
 
+def load_run_generator(run_dir: str, tag: str, device):
+    """``(G, config)`` of a run dir of either package's driver: the newest
+    ``*_config.json`` over the defaults, and ``weights/<base>_<tag>.msgpack``
+    with ``base`` ``G_ema`` when the run keeps and uses EMA, else ``G``
+    (``scripts/kid_eval.py:62-63``), on ``device`` in eval mode."""
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    from ieagan_torch.models.convert import generator_state_from_flax
+    from ieagan_torch.models.generator import Generator
+    from ieagan_torch.utils.flax_msgpack import read_checkpoint
+
+    cfgs = sorted(glob.glob(os.path.join(run_dir, "*_config.json")))
+    if not cfgs:
+        raise SystemExit(f"no *_config.json under {run_dir}")
+    with open(cfgs[-1], encoding="utf-8") as fp:
+        config = dict(DEFAULT_CONFIG, **json.load(fp))
+    use_ema = bool(config.get("ema")) and bool(config.get("use_ema"))
+    path = os.path.join(run_dir, "weights", f"{'G_ema' if use_ema else 'G'}_{tag}.msgpack")
+    with torch.device(device):
+        G = Generator.from_config(config)
+    state = generator_state_from_flax(read_checkpoint(path), G.state_dict())
+    G.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
+    return G.eval().requires_grad_(False), config
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--run-dir", required=True)
@@ -47,34 +71,16 @@ def main(argv=None):
                          "the run dir")
     args = ap.parse_args(argv)
 
-    from ieagan_torch.core.config import DEFAULT_CONFIG
     from ieagan_torch.core.precision import get_policy
     from ieagan_torch.eval import fid as fid_mod
     from ieagan_torch.eval import physics
-    from ieagan_torch.models.convert import generator_state_from_flax
-    from ieagan_torch.models.generator import Generator
     from ieagan_torch.ops.image_norm import denorm
-    from ieagan_torch.train.cli import platform_device
-    from ieagan_torch.train.driver import resolve_device
-    from ieagan_torch.utils.flax_msgpack import read_checkpoint
+    from ieagan_torch.train.cli import tool_device
 
-    cfgs = sorted(glob.glob(os.path.join(args.run_dir, "*_config.json")))
-    if not cfgs:
-        raise SystemExit(f"no *_config.json under {args.run_dir}")
-    with open(cfgs[-1], encoding="utf-8") as fp:
-        config = dict(DEFAULT_CONFIG, **json.load(fp))
+    device = tool_device()
+    G, config = load_run_generator(args.run_dir, args.tag, device)
     if args.num_gen:
         config["num_incep_images"] = args.num_gen
-
-    device = resolve_device(platform_device())
-    use_ema = bool(config.get("ema")) and bool(config.get("use_ema"))
-    path = os.path.join(args.run_dir, "weights",
-                        f"{'G_ema' if use_ema else 'G'}_{args.tag}.msgpack")
-    with torch.device(device):
-        G = Generator.from_config(config)
-    state = generator_state_from_flax(read_checkpoint(path), G.state_dict())
-    G.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()}, strict=True)
-    G.eval().requires_grad_(False)
     dtype = get_policy(config.get("compute_dtype", "bfloat16")).compute_dtype
 
     trunc = float(config.get("fid_trunc", 1.0))

@@ -248,6 +248,35 @@ def inception_state_from_flax(params: Mapping) -> dict:
     return out
 
 
+def inception_state_to_flax(state: Mapping) -> dict:
+    """The inverse of ``inception_state_from_flax``: this module's
+    ``state_dict()`` (tensors or numpy arrays) as the JAX package's flax
+    params tree of ``InceptionV3Features``, float32 numpy leaves: conv
+    weights OIHW -> HWIO ``conv/kernel``, the batch norm's four tensors ->
+    ``bn_scale/bn_bias/bn_mean/bn_var``. Raises unless ``state`` has exactly
+    the module's keys."""
+    want = InceptionV3Features().state_dict()
+    if set(state) != set(want):
+        odd = sorted(set(state) ^ set(want))
+        raise KeyError(f"Inception state: {len(odd)} keys differ from the module's, "
+                       f"e.g. {odd[:3]}")
+    flax_names = {v: k for k, v in _BN_FIELDS.items()}
+    tree: dict = {}
+    for key, value in state.items():
+        leaf = np.asarray(value.detach().cpu().numpy() if isinstance(value, torch.Tensor)
+                          else value, np.float32)
+        parts = key.split(".")
+        if parts[-2:] == ["conv", "weight"]:
+            path, leaf = parts[:-1] + ["kernel"], np.ascontiguousarray(leaf.transpose(2, 3, 1, 0))
+        else:
+            path = parts[:-2] + [flax_names[parts[-1]]]
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 def inception_state_from_torch(state: Mapping) -> dict:
     """A torchvision/timm ``inception_v3`` state dict restricted to this
     module's keys: the classifier (``fc``), the auxiliary head

@@ -84,6 +84,18 @@ def platform_device() -> str:
     raise SystemExit(f"IEAGAN_PLATFORM={platform!r}: the port runs on 'cuda' or 'cpu'")
 
 
+def tool_device(cpu: bool = False):
+    """The device of a user tool (``python -m ieagan_torch.<pkg>.<tool>``):
+    the CPU when the tool's ``--cpu`` flag or ``IEAGAN_PLATFORM=cpu`` asks
+    for it, else the GPU. With neither and no CUDA device the tool exits
+    with an error; it never carries on on the CPU unasked."""
+    from ieagan_torch.train.driver import resolve_device
+    try:
+        return resolve_device("cpu" if cpu else platform_device())
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+
+
 def main(argv=None):
     """Parse the flags, join the launcher's process group (a no-op for one
     process), make the run dirs on rank 0 and train (``train.py:103-118``)."""

@@ -67,8 +67,9 @@ def resolve_device(device) -> torch.device:
     runs on the CPU only when asked to)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port trains on the GPU unless asked for the "
-                           "CPU (train_torch.py: IEAGAN_PLATFORM=cpu; run(config, device='cpu'))")
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless asked for the CPU "
+                           "(IEAGAN_PLATFORM=cpu, a tool's --cpu flag, or run(config, "
+                           "device='cpu'))")
     return device
 
 

@@ -32,7 +32,7 @@ from ieagan_torch.ops import spectral as tsn
 from ieagan_torch.train.step import restore_train_state
 from tests.helpers import tiny_config
 from tests.test_torch_generator import pallas_interpreter  # noqa: F401 (fixture)
-from tests.test_torch_primitives import carry, nchw_to_nhwc, nhwc_to_nchw
+from tests.test_torch_primitives import carry, f32_array, nchw_to_nhwc, nhwc_to_nchw
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CHECKPOINT = "artifacts/flagship_r4b"
@@ -46,7 +46,7 @@ def _rng(seed):
 def _spectral(variables, rng):
     """Random ``u`` vectors, so the power iteration's result matters."""
     return jax.tree_util.tree_map_with_path(
-        lambda path, leaf: (jnp.asarray(rng.standard_normal(leaf.shape), jnp.float32)
+        lambda path, leaf: (f32_array(rng.standard_normal(leaf.shape))
                             if path[-1].key == "u" else leaf), variables)
 
 
@@ -54,8 +54,8 @@ def _randomize_params(params, rng):
     """Random biases and a non-zero SA gamma, so every leaf matters."""
     def one(path, leaf):
         if path[-1].key in ("bias", "gamma"):
-            return jnp.asarray(rng.standard_normal(leaf.shape) * 0.1 + 0.3 * (
-                path[-1].key == "gamma"), jnp.float32)
+            return f32_array(rng.standard_normal(leaf.shape) * 0.1 + 0.3 * (
+                path[-1].key == "gamma"))
         return leaf
     return jax.tree_util.tree_map_with_path(one, params)
 

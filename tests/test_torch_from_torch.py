@@ -84,7 +84,11 @@ def _port_forward(model, z, rdof, y):
         return model.G(torch.tensor(z), torch.tensor(y).long(), torch.tensor(rdof)).numpy()
 
 
-def _jax_variables(module, z, y):
+@pytest.fixture(scope="module")
+def jax_variables(tiny):
+    """The JAX generator's variables from PRNGKey(0) at ``tiny``'s shapes,
+    initialized once for the tests that read them."""
+    _, z, _, y, module = tiny
     return module.init({"params": jax.random.PRNGKey(0), "rdof": jax.random.PRNGKey(1)},
                        jnp.asarray(z), jnp.asarray(y), train=False)
 
@@ -104,23 +108,23 @@ def test_reference_keys(tiny):
                 or k.startswith(("blocks_", "attn_", "output_bn", "output_conv"))]
 
 
-def test_port_export_runs_in_jax(tiny):
+def test_port_export_runs_in_jax(tiny, jax_variables):
     """The port's reference-layout dict through the JAX package's converter:
     JAX's forward equals the port's."""
     model, z, rdof, y, module = tiny
     sd = {k: v.numpy() for k, v in generator_state_to_torch(model.G).items()}
-    variables = load_into_variables(dict(_jax_variables(module, z, y)),
+    variables = load_into_variables(dict(jax_variables),
                                     convert_torch_generator(sd, g_depth=2))
     want, _ = _jax_forward(module, variables, z, y, jax.random.PRNGKey(5), rdof)
     np.testing.assert_allclose(_port_forward(model, z, rdof, y), want, rtol=0, atol=TANH_ATOL)
 
 
-def test_jax_export_loads_with_from_torch(tiny, tmp_path):
+def test_jax_export_loads_with_from_torch(tiny, jax_variables, tmp_path):
     """JAX variables exported by the JAX package into the reference layout
     (the port's dict as template) load with ``Model.from_torch`` and give the
     JAX forward; ``from_torch`` reads them all and leaves nothing unused."""
     model, z, rdof, y, module = tiny
-    variables = jax.tree_util.tree_map(np.asarray, dict(_jax_variables(module, z, y)))
+    variables = jax.tree_util.tree_map(np.asarray, dict(jax_variables))
     template = {k: v.numpy() for k, v in generator_state_to_torch(model.G).items()}
     sd = export_generator_to_torch(variables, template, g_depth=2)
     path = tmp_path / "G.pth"
@@ -209,9 +213,14 @@ def _d_forward(D, x, y):
         return [t.numpy() for t in D(torch.tensor(x), torch.tensor(y).long())]
 
 
-def _jax_d_forward(module, variables, x, y):
+@pytest.fixture(scope="module")
+def jax_d_forward(tiny_d):
+    """The JAX discriminator's forward on ``tiny_d``'s batch, jitted once
+    for the tests that run it: variables -> outputs as numpy."""
+    _, x, y, module = tiny_d
     apply = jax.jit(lambda v, x, y: module.apply(v, x, y, train=False))
-    return [np.asarray(t) for t in apply(variables, jnp.asarray(x), jnp.asarray(y))]
+    return lambda variables: [np.asarray(t) for t in apply(variables, jnp.asarray(x),
+                                                           jnp.asarray(y))]
 
 
 def _jax_d_init(module, key, x, y):
@@ -232,18 +241,18 @@ def test_discriminator_reference_keys(tiny_d):
     assert not [k for k in sd if k.startswith(("blocks_", "attn_")) or k.endswith((".u", ".sv"))]
 
 
-def test_port_discriminator_export_runs_in_jax(tiny_d):
+def test_port_discriminator_export_runs_in_jax(tiny_d, jax_d_forward):
     """The port's reference-layout D through the JAX package's
     ``convert_torch_discriminator``: JAX's forward equals the port's."""
     D, x, y, module = tiny_d
     sd = {k: v.numpy() for k, v in discriminator_state_to_torch(D).items()}
     variables = load_into_variables(dict(_jax_d_init(module, 0, x, y)),
                                     convert_torch_discriminator(sd, d_depth=2))
-    for got, want in zip(_d_forward(D, x, y), _jax_d_forward(module, variables, x, y)):
+    for got, want in zip(_d_forward(D, x, y), jax_d_forward(variables)):
         np.testing.assert_allclose(got, want, rtol=D_TOL, atol=D_TOL)
 
 
-def test_jax_discriminator_export_loads_in_the_port(tiny_d):
+def test_jax_discriminator_export_loads_in_the_port(tiny_d, jax_d_forward):
     """JAX variables exported by ``export_discriminator_to_torch`` (the
     port's dict as template) read by ``discriminator_state_from_torch``
     give the JAX forward, and every leaf bit for bit."""
@@ -254,7 +263,7 @@ def test_jax_discriminator_export_loads_in_the_port(tiny_d):
     other = Discriminator.from_config(D_CONFIG).eval()
     state = discriminator_state_from_torch(sd, 2, other.state_dict())
     other.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-    for got, want in zip(_d_forward(other, x, y), _jax_d_forward(module, variables, x, y)):
+    for got, want in zip(_d_forward(other, x, y), jax_d_forward(variables)):
         np.testing.assert_allclose(got, want, rtol=D_TOL, atol=D_TOL)
     flax_state = discriminator_state_to_flax(other)
     np.testing.assert_array_equal(flax_state["params"]["RR_Dproxy"]["layers_0"]["linear1"][

@@ -30,7 +30,7 @@ from ieagan_torch.deploy import Model, generate, generate_batched, generate_bloc
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import generate_postprocess
 from tests.helpers import tiny_config
-from tests.test_torch_primitives import carry
+from tests.test_torch_primitives import carry, f32_array
 
 CONFIG = tiny_config(RRM_prx_G=True, rdof_dim=4, use_pallas_attention=True,
                      compute_dtype="float32")
@@ -60,11 +60,11 @@ def _randomize(variables, rng):
     def perturb(path, leaf):
         name = path[-1].key
         if name == "bias":
-            return jnp.asarray(rng.standard_normal(leaf.shape) * 0.1, jnp.float32)
+            return f32_array(rng.standard_normal(leaf.shape) * 0.1)
         if name == "mean":
-            return jnp.asarray(rng.standard_normal(leaf.shape) * 0.1, jnp.float32)
+            return f32_array(rng.standard_normal(leaf.shape) * 0.1)
         if name == "var":
-            return jnp.asarray(rng.uniform(0.5, 1.5, leaf.shape), jnp.float32)
+            return f32_array(rng.uniform(0.5, 1.5, leaf.shape))
         return leaf
     return jax.tree_util.tree_map_with_path(perturb, variables)
 

@@ -18,6 +18,8 @@ Tolerances are that file's: metrics rtol 2e-3, atol 2e-5; per-leaf gradients
 spectral state 1e-3 relative, 1e-4 absolute.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -54,49 +56,65 @@ STEP_CASES = {
 }
 
 
+def _jax_case(name):
+    """Case ``name``'s config, the JAX package's init with random biases and
+    SA gammas, the batch and draws, and one JAX step from it: (cfg, state,
+    x, y, the port's draw schedule, new state, metrics)."""
+    cfg = tiny_config(RRM_prx_G=True, rdof_dim=4, diff_aug=True, use_pallas_attention=False,
+                      compute_dtype="float32", **STEP_CASES[name])
+    policy = cfg["diff_aug_policy"]
+    es, epb = cfg["n_classes"], cfg["events_per_batch"]
+    b = es * epb
+    rng = np.random.default_rng(0)
+    jG, jD = JaxG.from_config(cfg), JaxD.from_config(cfg)
+    state = jax_init(jG, jD, cfg, jax.random.PRNGKey(0))
+    params_G = _randomize_params(state.params_G, rng)
+    params_D = _randomize_params(state.params_D, rng)
+    state = state.replace(params_G=params_G, params_D=params_D,
+                          params_G_ema=jax.tree_util.tree_map(jnp.copy, params_G))
+    x = rng.uniform(-1, 1, (b, 32, 32, 1)).astype(np.float32)
+    y = np.tile(np.arange(es, dtype=np.int32), epb)
+    z = [rng.standard_normal((b, cfg["dim_z"])).astype(np.float32) for _ in range(2)]
+    rdof = [rng.standard_normal((b, 4)).astype(np.float32) for _ in range(2)]
+    key = jax.random.PRNGKey(9)
+    key1, _, _, kaug_d = jax.random.split(key, 4)
+    _, _, _, kaug_g = jax.random.split(key1, 4)
+    schedule = [z[0], rdof[0], jax_draws(kaug_d, x.shape, policy),
+                jax_draws(jax.random.fold_in(kaug_d, 7), x.shape, policy)]
+    if cfg["Con_reg"]:
+        schedule.append(_cr_draws(jax.random.fold_in(kaug_d, 1), x.shape))
+    schedule += [z[1], rdof[1], jax_draws(kaug_g, x.shape, policy)]
+    rdof_iter = iter(rdof)
+
+    def interceptor(next_fun, args, kwargs, context):
+        if context.module.name == "linear_f" and context.method_name == "__call__":
+            args = (args[0].at[:, -4:].set(jnp.asarray(next(rdof_iter))),) + tuple(args[1:])
+        return next_fun(*args, **kwargs)
+
+    step = jax_make_step(jG, jD, cfg, z_schedule=z, capture_grads=True)
+    with nn.intercept_methods(interceptor):
+        new_state, jmets = jax.jit(step)(state, jnp.asarray(x), jnp.asarray(y), key)
+    return cfg, state, x, y, schedule, new_state, jmets
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """Every case's JAX side, each case in a thread of its own: their
+    compiles overlap (XLA releases the GIL), and flax's method interceptors
+    are per thread."""
+    with ThreadPoolExecutor(len(STEP_CASES)) as pool:
+        return dict(zip(STEP_CASES, pool.map(_jax_case, STEP_CASES)))
+
+
 @pytest.fixture(scope="module", params=list(STEP_CASES))
-def option_step(request):
+def option_step(request, jax_steps):
     """One step of each package from the same state and draws: the JAX
     (old state, new state, metrics) and the port's (state, metrics, the
     shapes FlashAttention saw per phase)."""
+    cfg, state, x, y, schedule, new_state, jmets = jax_steps[request.param]
     mp = pytest.MonkeyPatch()
     try:
-        cfg = tiny_config(RRM_prx_G=True, rdof_dim=4, diff_aug=True, use_pallas_attention=False,
-                          compute_dtype="float32", **STEP_CASES[request.param])
         fused = dict(cfg, use_pallas_attention=True)
-        policy = cfg["diff_aug_policy"]
-        es, epb = cfg["n_classes"], cfg["events_per_batch"]
-        b = es * epb
-        rng = np.random.default_rng(0)
-        jG, jD = JaxG.from_config(cfg), JaxD.from_config(cfg)
-        state = jax_init(jG, jD, cfg, jax.random.PRNGKey(0))
-        params_G = _randomize_params(state.params_G, rng)
-        params_D = _randomize_params(state.params_D, rng)
-        state = state.replace(params_G=params_G, params_D=params_D,
-                              params_G_ema=jax.tree_util.tree_map(jnp.copy, params_G))
-        x = rng.uniform(-1, 1, (b, 32, 32, 1)).astype(np.float32)
-        y = np.tile(np.arange(es, dtype=np.int32), epb)
-        z = [rng.standard_normal((b, cfg["dim_z"])).astype(np.float32) for _ in range(2)]
-        rdof = [rng.standard_normal((b, 4)).astype(np.float32) for _ in range(2)]
-        key = jax.random.PRNGKey(9)
-        key1, _, _, kaug_d = jax.random.split(key, 4)
-        _, _, _, kaug_g = jax.random.split(key1, 4)
-        schedule = [z[0], rdof[0], jax_draws(kaug_d, x.shape, policy),
-                    jax_draws(jax.random.fold_in(kaug_d, 7), x.shape, policy)]
-        if cfg["Con_reg"]:
-            schedule.append(_cr_draws(jax.random.fold_in(kaug_d, 1), x.shape))
-        schedule += [z[1], rdof[1], jax_draws(kaug_g, x.shape, policy)]
-        rdof_iter = iter(rdof)
-
-        def interceptor(next_fun, args, kwargs, context):
-            if context.module.name == "linear_f" and context.method_name == "__call__":
-                args = (args[0].at[:, -4:].set(jnp.asarray(next(rdof_iter))),) + tuple(args[1:])
-            return next_fun(*args, **kwargs)
-
-        step = jax_make_step(jG, jD, cfg, z_schedule=z, capture_grads=True)
-        with nn.intercept_methods(interceptor):
-            new_state, jmets = jax.jit(step)(state, jnp.asarray(x), jnp.asarray(y), key)
-
         G = _load(Generator.from_config(fused), _variables(state.params_G, state.state_G),
                   generator_state_from_flax)
         G_ema = _load(Generator.from_config(fused),

@@ -36,6 +36,9 @@ the learning rate, as in ``tests/test_torch_train_step.py``.
 """
 
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -61,7 +64,8 @@ from tests.helpers import tiny_config
 from tests.test_torch_discriminator import _randomize_params
 from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_losses import jax_draws
-from tests.torch_ranks import bn_forward, run_cases, run_step_rank, spawn_ranks
+from tests.torch_ranks import (join_processes, rank_targets, run_single, run_step_rank,
+                               start_processes)
 
 CONFIG = tiny_config(RRM_prx_G=True, rdof_dim=4, diff_aug=True, compute_dtype="float32")
 POLICY = CONFIG["diff_aug_policy"]
@@ -98,10 +102,13 @@ def _port_state_dict(module_cls, variables, convert, cfg):
     return {k: torch.tensor(v) for k, v in sd.items()}
 
 
-def _jax_state(cfg, rng):
-    """The JAX train state of ``cfg`` from PRNGKey(0), biases and SA gammas
-    drawn from ``rng``."""
-    state = jax_init(JaxG.from_config(cfg), JaxD.from_config(cfg), cfg, jax.random.PRNGKey(0))
+def _jax_init(cfg):
+    """The JAX train state of ``cfg`` from PRNGKey(0)."""
+    return jax_init(JaxG.from_config(cfg), JaxD.from_config(cfg), cfg, jax.random.PRNGKey(0))
+
+
+def _randomized(state, rng):
+    """``state`` with biases and SA gammas drawn from ``rng``."""
     params_G = _randomize_params(state.params_G, rng)
     return state.replace(params_G=params_G, params_D=_randomize_params(state.params_D, rng),
                          params_G_ema=jax.tree_util.tree_map(jnp.copy, params_G))
@@ -125,10 +132,25 @@ def _rows(item, rows):
     return item[rows]
 
 
-def _jax_mesh_step(state, cfg, x, y, z, rdof, key, mesh):
-    """``make_sharded_train_step`` on ``mesh`` with the JAX step's z seam and
-    gradient capture (its ``make_train_step`` patched to take them) and
-    rdof written into G's ``linear_f`` input, D phase then G phase."""
+@contextlib.contextmanager
+def _step_seam(z):
+    """The JAX step's z seam and gradient capture for every mesh step built
+    inside: its ``make_train_step`` patched to take them."""
+    make_step = jax_step_module.make_train_step
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_step_module, "make_train_step",
+               lambda G, D, config, spe=0: make_step(G, D, config, spe, z_schedule=z,
+                                                     capture_grads=True))
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
+def _jax_mesh_step(state, cfg, x, y, rdof, key, mesh):
+    """``make_sharded_train_step`` on ``mesh`` (inside ``_step_seam``) with
+    rdof written into G's ``linear_f`` input, D phase then G phase. Flax's
+    method interceptors are per thread, so several cases run at once."""
     rdof_iter = iter(rdof)
 
     def interceptor(next_fun, args, kwargs, context):
@@ -136,21 +158,13 @@ def _jax_mesh_step(state, cfg, x, y, z, rdof, key, mesh):
             args = (args[0].at[:, -4:].set(jnp.asarray(next(rdof_iter))),) + tuple(args[1:])
         return next_fun(*args, **kwargs)
 
-    make_step = jax_step_module.make_train_step
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jax_step_module, "make_train_step",
-               lambda G, D, config, spe=0: make_step(G, D, config, spe, z_schedule=z,
-                                                     capture_grads=True))
-    try:
-        jG, jD = JaxG.from_config(cfg), JaxD.from_config(cfg)
-        step = jax_sharding.make_sharded_train_step(jG, jD, cfg, mesh)
-        # the step donates its state: it takes a copy
-        placed = jax_sharding.place_state(jax.tree_util.tree_map(jnp.copy, state), mesh)
-        with nn.intercept_methods(interceptor):
-            new_state, mets = step(placed, x, y, key)
-        jax.block_until_ready(new_state.params_G)
-    finally:
-        mp.undo()
+    jG, jD = JaxG.from_config(cfg), JaxD.from_config(cfg)
+    step = jax_sharding.make_sharded_train_step(jG, jD, cfg, mesh)
+    # the step donates its state: it takes a copy
+    placed = jax_sharding.place_state(jax.tree_util.tree_map(jnp.copy, state), mesh)
+    with nn.intercept_methods(interceptor):
+        new_state, mets = step(placed, x, y, key)
+    jax.block_until_ready(new_state.params_G)
     assert next(rdof_iter, None) is None
     return new_state, mets
 
@@ -166,8 +180,16 @@ def runs(tmp_path_factory):
         pytest.skip("needs 2 virtual devices")
     es, epb = CONFIG["n_classes"], CONFIG["events_per_batch"]
     b = es * epb
+    configs = {name: dict(CONFIG, **case) for name, case in CASES.items()}
+    seeds = {name: next((s for k, s in ARCH_SEEDS.items() if cfg[k]), None)
+             for name, cfg in configs.items()}
+    arch = [name for name in configs if seeds[name] is not None]
+    # the JAX inits compile at once (XLA releases the GIL); each state's
+    # draws follow, in the order of the generators' use
+    with ThreadPoolExecutor(1 + len(arch)) as pool:
+        inits = list(pool.map(_jax_init, [CONFIG] + [configs[name] for name in arch]))
     rng = np.random.default_rng(0)
-    state = _jax_state(CONFIG, rng)
+    state = _randomized(inits[0], rng)
     x = rng.uniform(-1, 1, (b, 32, 32, 1)).astype(np.float32)
     y = np.tile(np.arange(es, dtype=np.int32), epb)
     z = [rng.standard_normal((b, CONFIG["dim_z"])).astype(np.float32) for _ in range(2)]
@@ -179,16 +201,9 @@ def runs(tmp_path_factory):
                 jax_draws(jax.random.fold_in(kaug_d, 7), x.shape, POLICY),
                 z[1], rdof[1], jax_draws(kaug_g, x.shape, POLICY)]
 
-    configs = {name: dict(CONFIG, **case) for name, case in CASES.items()}
-    seeds = {name: next((s for k, s in ARCH_SEEDS.items() if cfg[k]), None)
-             for name, cfg in configs.items()}
-    states = {name: state if seeds[name] is None
-              else _jax_state(cfg, np.random.default_rng(seeds[name]))
-              for name, cfg in configs.items()}
-
-    mesh = jax_make_mesh(n_data=2)
-    jax_results = {name: _jax_mesh_step(states[name], configs[name], x, y, z, rdof, key, mesh)
-                   for name in JAX_CASES}
+    states = dict.fromkeys(configs, state)
+    states.update({name: _randomized(init, np.random.default_rng(seeds[name]))
+                   for name, init in zip(arch, inits[1:])})
 
     weights = _port_weights(state, CONFIG)
     xt, yt = torch.tensor(x), torch.tensor(y).long()
@@ -201,15 +216,28 @@ def runs(tmp_path_factory):
     bn = dict(config=CONFIG, G=weights["G"], z=torch.randn((b, CONFIG["dim_z"]), generator=g),
               y=yt, rdof=torch.randn((b, 4), generator=g),
               w=torch.randn((b, 32, 32, 1), generator=g))
-    out = tmp_path_factory.mktemp("ranks")
-    torch.save({"bn": bn, "cases": cases}, out / "job.pt")
-    spawn_ranks(run_step_rank, 2, (str(out / "init"), str(out / "job.pt"), str(out)))
-    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
-    single = {"bn": bn_forward(bn, None), "cases": run_cases(cases, None)}
     half = slice(0, b // 2)
-    control = run_cases([dict(cases[0], x=xt[half], y=yt[half],
-                              schedule=[[_rows(item, half) for item in schedule]])], None)[0]
-    return states, jax_results, ranks, single, control
+    control = [dict(cases[0], x=xt[half], y=yt[half],
+                    schedule=[[_rows(item, half) for item in schedule]])]
+    out = tmp_path_factory.mktemp("ranks")
+    job = str(out / "job.pt")
+    torch.save({"bn": bn, "cases": cases, "control": control}, job)
+    # the two ranks and the single process run while the JAX mesh steps
+    # compile here, each case in a thread of its own
+    procs = start_processes(rank_targets(run_step_rank, 2, (str(out / "init"), job, str(out)))
+                            + [(run_single, (job, str(out)))])
+    try:
+        mesh = jax_make_mesh(n_data=2)
+        with _step_seam(z), ThreadPoolExecutor(len(JAX_CASES)) as pool:
+            futures = {name: pool.submit(_jax_mesh_step, states[name], configs[name], x, y,
+                                         rdof, key, mesh)
+                       for name in JAX_CASES}
+            jax_results = {name: f.result() for name, f in futures.items()}
+    finally:
+        join_processes(procs)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    single = torch.load(out / "single.pt", weights_only=False)
+    return states, jax_results, ranks, single, single.pop("control")[0]
 
 
 def _leaf_errors(got: dict, want: dict):
@@ -232,9 +260,11 @@ def _case(runs, name):
     return ranks[0]["cases"][i], ranks[1]["cases"][i], single["cases"][i]
 
 
-def _initial(runs, name, net):
-    """The port's state dict of ``net`` before the steps of case ``name``."""
-    return _port_weights(runs[0][name], dict(CONFIG, **CASES[name]))[net]
+@pytest.fixture(scope="module")
+def initial(runs):
+    """The port's state dicts of G, D and G_ema before the steps, by case."""
+    return {name: _port_weights(runs[0][name], dict(CONFIG, **case))
+            for name, case in CASES.items()}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -260,7 +290,7 @@ def test_two_ranks_gradients_equal_one_process(runs, name, net):
 
 @pytest.mark.parametrize("net", ["G", "D", "G_ema"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_two_ranks_updated_state_equals_one_process(runs, name, net):
+def test_two_ranks_updated_state_equals_one_process(runs, initial, name, net):
     """After the first step: every buffer (``u``, ``sv``, BN stats, the
     standing counter) and, for G_ema, every tensor within 1e-5; every
     parameter of G and D within 1e-5 of the single process's, except the
@@ -273,7 +303,7 @@ def test_two_ranks_updated_state_equals_one_process(runs, name, net):
         n for n, _ in (Generator if net == "G" else Discriminator).from_config(
             dict(CONFIG, **CASES[name])).named_parameters()}
     grads = {} if net == "G_ema" else want["grads"][net]
-    before = _initial(runs, name, net)
+    before = initial[name][net]
     for k, w in want["state"][net].items():
         g = got["state"][net][k]
         if k in params and float(grads[k].norm()) < 1e-5:

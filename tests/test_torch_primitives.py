@@ -27,6 +27,13 @@ from ieagan_torch.ops import spectral as tsn
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+def f32_array(values):
+    """A numpy draw as a float32 JAX array, rounded on the host: the same
+    numbers as ``jnp.asarray(values, jnp.float32)``, without a conversion
+    compiled for every new shape."""
+    return jnp.asarray(np.asarray(values, np.float32))
+
+
 def carry(module, variables):
     """Load flax ``variables`` of a module into the port's twin ``module``
     through the port's carry-over, which must use every key."""

@@ -34,6 +34,7 @@ from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import sample_diff_aug_draws
 from ieagan_torch.train.step import init_train_state, make_train_step
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse fixture)
 
 SEED = 3
 

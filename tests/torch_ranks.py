@@ -191,13 +191,29 @@ def run_cli_rank(rank: int, world: int, port: int, argv: list, env: dict, out_di
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def spawn_ranks(target, world: int, args: tuple, timeout: float = RANK_TIMEOUT_S):
-    """Run ``target(rank, world, *args)`` in ``world`` spawned processes;
-    raise if one fails or outlives ``timeout``."""
+def run_single(job_path: str, out_dir: str):
+    """One process taking the whole batch of a job (no process group): the
+    job's BN case, its step cases and its ``control`` cases, saved as
+    ``single.pt`` under ``out_dir``."""
+    _rank_env()
+    job = torch.load(job_path, weights_only=False)
+    out = {"bn": bn_forward(job["bn"], None), "cases": run_cases(job["cases"], None),
+           "control": run_cases(job.get("control", []), None)}
+    torch.save(out, os.path.join(out_dir, "single.pt"))
+
+
+def start_processes(targets: list) -> list:
+    """Start each ``(target, args)`` in a spawned process; returns them."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, world, *args)) for r in range(world)]
+    procs = [ctx.Process(target=target, args=args) for target, args in targets]
     for p in procs:
         p.start()
+    return procs
+
+
+def join_processes(procs: list, timeout: float = RANK_TIMEOUT_S):
+    """Wait for ``procs``, each up to ``timeout``; kill any still alive,
+    then raise if one failed."""
     try:
         for p in procs:
             p.join(timeout)
@@ -207,9 +223,20 @@ def spawn_ranks(target, world: int, args: tuple, timeout: float = RANK_TIMEOUT_S
                 p.kill()
                 p.join()
     codes = [p.exitcode for p in procs]
-    if codes != [0] * world:
-        raise RuntimeError(f"rank exit codes {codes} (a negative code: killed at the "
+    if codes != [0] * len(procs):
+        raise RuntimeError(f"process exit codes {codes} (a negative code: killed at the "
                            f"{timeout:.0f} s limit or by a signal)")
+
+
+def rank_targets(target, world: int, args: tuple) -> list:
+    """``(target, (rank, world, *args))`` for each rank."""
+    return [(target, (r, world, *args)) for r in range(world)]
+
+
+def spawn_ranks(target, world: int, args: tuple, timeout: float = RANK_TIMEOUT_S):
+    """Run ``target(rank, world, *args)`` in ``world`` spawned processes;
+    raise if one fails or outlives ``timeout``."""
+    join_processes(start_processes(rank_targets(target, world, args)), timeout)
 
 
 if __name__ == "__main__":
