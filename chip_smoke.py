@@ -122,6 +122,15 @@ Phases, each timed on a line of its own:
    seconds by part; (e) ``eval.finetune_inception`` on the PNG tree, its
    first step against the CPU's, the written backbone read back into
    ``FeatureExtractor`` bit-equal, ms per step and peak memory.
+14. tensor parallelism: two gloo ranks on the one card on a 1x2 mesh (each
+   holding half of every leaf the JAX rule splits, Adam moments and G_ema
+   included), f32 with TF32 off, one step from ``copy16000`` on 11b's rank 0
+   event and draws, against 11b's one-process step on that event (phase 11's
+   bounds on gradients and Adam moments, parameters within twice the
+   learning rate): the replicated leaves bit-equal on both ranks, each
+   rank's split bytes half the whole, B1/B2 launches per rank by shape at
+   the rank's share of the heads or channels (phases 3/3b hold those shapes
+   against the plain versions), step ms and peak memory per rank.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -165,8 +174,15 @@ SITES = [
     ("ODD256", 3, 77, 45, 200, 130, 0.3),
     ("RR_D", 4, 160, 160, 128, 128, 128 ** -0.5),
     ("RR_Dproxy", 4, 160, 160, 256, 256, 256 ** -0.5),
+    # each rank's sites under tensor parallelism at model 2 (phase 14): RR_G
+    # one head of its two, RR_D two of four, D SA the half of v's channels
+    # that the split g gives it (the (32, 64) instance)
+    ("RR_G", 1, 40, 40, 64, 64, 0.125),
+    ("RR_D", 2, 40, 40, 128, 128, 128 ** -0.5),
+    ("D_SA", 40, 3072, 768, 32, 64, 1.0),
 ]
-BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11)]
+BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)]
+TP_SITES = SITES[12:15]
 # |kernel - plain| <= ATOL + RTOL * |plain|. f32: scores of up to 128 products
 # at |s| up to ~20 (scale 1 at D_SA) carry ~1e-6 relative rounding that exp
 # amplifies; 1e-4 bounds it. bf16: o is rounded to bf16 on both sides from
@@ -2169,13 +2185,15 @@ def state_digest(state):
     return out
 
 
-def phase11_single(torch, x, y, schedule, split_moments=False):
+def phase11_single(torch, x, y, schedule, split_moments=False, keep_state=False):
     """One process's f32 step from copy16000 on the given batch and draws:
     metrics and gradients, on the host. ``split_moments``: batch norm sums
     each event's rows and adds them, as the ranks' all-reduce does. With
     more than one event, also how far G's eval output for the first event
     moves between a batch of that event alone and the whole batch
-    (``batch_rounding``, max abs over tanh; the step's new weights)."""
+    (``batch_rounding``, max abs over tanh; the step's new weights).
+    ``keep_state``: also the parameters and Adam moments after the step
+    (``tp_state``, host copies, by ``G.<name>`` and ``D.<name>``)."""
     import ieagan_torch.ops.norm as norm
     from ieagan_torch.train.step import make_train_step, restore_train_state
 
@@ -2198,6 +2216,8 @@ def phase11_single(torch, x, y, schedule, split_moments=False):
     out = {"metrics": {k: v for k, v in m.items() if not k.startswith("_")},
            "grads": {f"{net}.{k}": v.cpu() for net in ("G", "D")
                      for k, v in m[f"_grads_{net}"].items()}}
+    if keep_state:
+        out["tp_state"] = params_and_moments(state)
     if x.shape[0] > 40:
         z, rdof, yc = schedule[0].cuda(), schedule[1].cuda(), y.cuda()
         with torch.no_grad():
@@ -2207,6 +2227,26 @@ def phase11_single(torch, x, y, schedule, split_moments=False):
         out["batch_rounding"] = float((alone - within).abs().max())
     del state, m
     torch.cuda.empty_cache()
+    return out
+
+
+def event0_schedule(schedule):
+    """Rank 0's event's rows of phase 11b's draws."""
+    rows = slice(0, 40)
+    return [{k: v[rows] for k, v in i.items()} if isinstance(i, dict) else i[rows]
+            for i in schedule]
+
+
+def params_and_moments(state):
+    """Host copies of G's and D's parameters and Adam moments (by
+    ``G.<name>``; moments under ``mu``/``nu``)."""
+    out = {"params": {}, "mu": {}, "nu": {}}
+    for net in ("G", "D"):
+        opt = getattr(state, f"opt_{net}")
+        for k, p in getattr(state, net).named_parameters():
+            out["params"][f"{net}.{k}"] = p.detach().cpu()
+            for m in ("mu", "nu"):
+                out[m][f"{net}.{k}"] = opt.state[p][m].cpu()
     return out
 
 
@@ -2350,9 +2390,8 @@ def phase11_singles(torch, np, x, y, schedule):
     both = phase11_single(torch, x, y, schedule)
     by_event = phase11_single(torch, x, y, schedule, split_moments=True)
     rows = slice(0, 40)
-    alone = phase11_single(torch, x[rows], y[rows], [
-        {k: v[rows] for k, v in i.items()} if isinstance(i, dict) else i[rows]
-        for i in schedule])
+    alone = phase11_single(torch, x[rows], y[rows], event0_schedule(schedule),
+                           keep_state=True)
     print(f"11b one process: 2 events, 2 events with BN summed by event, rank 0's event "
           f"alone: {time.perf_counter() - t:.1f} s; G's eval output for event 0 at a batch of "
           f"40 vs within the batch of 80: max abs {both['batch_rounding']:.3e}", flush=True)
@@ -2469,7 +2508,231 @@ def parallel_phase(torch, np):
     rank0 = data_parallel_phase(np, ranks, singles)
     rank0["11c"] = reference_parity_phase(np, ranks, single11c)
     phase("11b and 11c, two gloo ranks", t0)
-    return entry_ms, rank0
+    # phase 14 takes rank 0's event and its one-process step (the control here)
+    return entry_ms, rank0, (x[:40], y[:40], event0_schedule(schedule), singles[1])
+
+
+# Phase 14: tensor parallelism (the mesh's model axis) at the flagship
+# width. Two gloo ranks share the one card (NCCL refuses two ranks on one
+# device) on a 1x2 mesh, each holding its half of every leaf the JAX rule
+# splits (G 112 column and 2 row leaves, D 44 and 3) in the parameters,
+# G_ema and both Adam moments; from copy16000, f32 with TF32 off, one step on
+# 11b's rank 0 event and draws, against 11b's one-process step on that event
+# (phase 11's bounds: metrics, per-leaf gradient max of G and D, D's median
+# at STEP_GRAD_MEDIAN, G's at PHASE11_G_MEDIAN; the Adam moments mu and
+# sqrt(nu) per leaf as the gradients; every parameter element within twice
+# the learning rate, since a gradient whose sign rounding decides takes
+# Adam's whole first step either way). The replicated leaves must be
+# bit-equal on both ranks, and each rank's bytes of the split leaves half
+# the whole. Launches per rank by shape: B1 at RR_G in both G passes, at
+# RR_D and D SA in D's three passes; B2 at D SA in all three D passes, RR_D
+# in the D phase's real pass and the G phase, RR_G in the G phase, each at
+# the rank's share of the heads (RR_G 1 of 2, RR_D 2 of 4) or of v's
+# channels (D SA 64 of 128).
+PHASE14_MESH = (1, 2)
+PHASE14_LAUNCHES = {("B1", (1, 40, 40, 64, 64)): 2, ("B1", (2, 40, 40, 128, 128)): 3,
+                    ("B1", (40, 3072, 768, 32, 64)): 3, ("B2", (1, 40, 40, 64, 64)): 1,
+                    ("B2", (2, 40, 40, 128, 128)): 2, ("B2", (40, 3072, 768, 32, 64)): 3}
+
+
+class ShapeCounter:
+    """Observation only: FlashAttention's forward and backward calls by
+    kernel and shape (B, Lq, Lkv, dk, dv)."""
+
+    def __init__(self, fa):
+        self.fa, self.counts = fa, {}
+
+    def __enter__(self):
+        fa = self.fa
+        self.fwd, self.bwd = fa.FlashAttention.forward, fa.FlashAttention.backward
+        fwd, bwd = self.fwd, self.bwd
+
+        def seen(kernel, shape):
+            key = (kernel, tuple(int(n) for n in shape))
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+        def forward(ctx, q, k, v, *a):
+            seen("B1", (q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
+            return fwd(ctx, q, k, v, *a)
+
+        def backward(ctx, do):
+            q, k, v = ctx.saved_tensors[:3]
+            seen("B2", (q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
+            return bwd(ctx, do)
+
+        fa.FlashAttention.forward = staticmethod(forward)
+        fa.FlashAttention.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.FlashAttention.forward = self.fwd
+        self.fa.FlashAttention.backward = self.bwd
+
+
+def phase14_rank(rank, world, init_file, job_path, out_dir):
+    """One rank of phase 14, spawned: gloo on the card, a 1x2 mesh, one f32
+    step from copy16000 on the job's event and draws; saves its launches,
+    step ms, peak memory, its bytes of the split leaves against their whole
+    bytes, the digest of its state and (rank 0) the metrics, the gradients
+    and the parameters and Adam moments gathered whole, as ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        import ieagan_torch.kernels.flash_attention as fa
+        from ieagan_torch.core.mesh import make_mesh
+        from ieagan_torch.parallel import tensor
+        from ieagan_torch.parallel.sharding import (full_state, full_tensors,
+                                                    make_sharded_train_step, place_state)
+        from ieagan_torch.train.step import restore_train_state
+
+        job = torch.load(job_path, weights_only=False)
+        mesh = make_mesh(*PHASE14_MESH)
+        state = place_state(restore_train_state(CHECKPOINT, "copy16000", device="cuda"), mesh)
+        step = make_sharded_train_step(state.G, state.D, {}, mesh,
+                                       draw_schedule=[to_cuda(i) for i in job["schedule"]],
+                                       capture_grads=True)
+        x, y = job["x"].cuda(), job["y"].cuda()
+        torch.cuda.reset_peak_memory_stats()
+        fa.attention_fwd.launches = fa.attention_bwd.launches = 0
+        with ShapeCounter(fa) as shapes:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(state, x, y)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t) * 1e3
+        held, whole = 0, 0
+        for net, opt in ((state.G, state.opt_G), (state.D, state.opt_D), (state.G_ema, None)):
+            for _, layer in tensor.split_layers(net):
+                tensors = [layer.weight] + ([] if opt is None else [
+                    opt.state[layer.weight][k] for k in opt.moment_names])
+                held += sum(t.numel() * t.element_size() for t in tensors)
+                whole += sum(t.numel() * t.element_size() for t in tensors) * mesh.n_model
+        out = {"launches": {"B1": fa.attention_fwd.launches, "B2": fa.attention_bwd.launches},
+               "shapes": shapes.counts, "step_ms": step_ms,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "split_bytes": (held, whole), "digest": state_digest(state),
+               "split": sorted(f"{net}.{n}.weight" for net in ("G", "D", "G_ema")
+                               for n, _ in tensor.split_layers(getattr(state, net)))}
+        grads = {net: full_tensors(getattr(state, net), m[f"_grads_{net}"], mesh)
+                 for net in ("G", "D")}
+        with full_state(state, mesh):
+            whole_state = params_and_moments(state) if rank == 0 else None
+        if rank == 0:
+            out["metrics"] = {k: v for k, v in m.items() if not k.startswith("_")}
+            out["grads"] = {f"{net}.{k}": v.cpu() for net in ("G", "D")
+                            for k, v in grads[net].items()}
+            out["tp_state"] = whole_state
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def per_leaf(np, got, want):
+    """(max, median) per network of the per-leaf ||got - want|| / ||want||
+    over the leaves with ||want|| >= 1e-5."""
+    errs = {}
+    for name, w in want.items():
+        g, w = got[name].double(), w.double()
+        if float(w.norm()) >= 1e-5:
+            errs[name] = float((g - w).norm()) / float(w.norm())
+    return {net: (max(v for k, v in errs.items() if k.startswith(net + ".")),
+                  float(np.median([v for k, v in errs.items() if k.startswith(net + ".")])))
+            for net in ("G", "D")}
+
+
+def tensor_parallel_phase(torch, np, inputs, dp_gap):
+    """Phase 14: two gloo ranks on a 1x2 mesh against 11b's one-process
+    step on rank 0's event (``inputs``: the event, its draws and that
+    step); ``dp_gap`` is 11b's gap, printed beside. Returns rank 0's
+    result."""
+    import multiprocessing
+    import tempfile
+
+    x, y, schedule, alone = inputs
+    world = PHASE14_MESH[0] * PHASE14_MESH[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pt")
+        torch.save({"x": x, "y": y, "schedule": schedule}, job)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=phase14_rank, args=(r, world, os.path.join(tmp, "init"),
+                                                        job, tmp))
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if [p.exitcode for p in procs] != [0] * world:
+            raise SystemExit(f"14: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    print(f"14 two gloo ranks on a 1x2 mesh: {time.perf_counter() - t0:.1f} s (spawn, "
+          "restore, placement, one step, gathers)", flush=True)
+    for r, res in enumerate(ranks):
+        held, whole = res["split_bytes"]
+        print(f"14 rank {r}: step {res['step_ms']:.1f} ms, peak {res['peak_gib']:.2f} GiB, "
+              f"B1 {res['launches']['B1']}, B2 {res['launches']['B2']} launches; by shape "
+              + json.dumps({f"{k} {'x'.join(map(str, s_))}": n
+                            for (k, s_), n in sorted(res["shapes"].items())})
+              + f"; split leaves {len(res['split'])}, {held / 2**20:.2f} of "
+              f"{whole / 2**20:.2f} MiB", flush=True)
+        if res["shapes"] != PHASE14_LAUNCHES:
+            raise SystemExit(f"14 rank {r}: launches {res['shapes']}, expected "
+                             f"{PHASE14_LAUNCHES}")
+        if (res["launches"]["B1"], res["launches"]["B2"]) != (B1_PER_STEP, B2_PER_STEP):
+            raise SystemExit(f"14 rank {r}: B1/B2 launched {res['launches']}")
+        if held * PHASE14_MESH[1] != whole or len(res["split"]) != 2 * (112 + 2) + 44 + 3:
+            raise SystemExit(f"14 rank {r}: split leaves {len(res['split'])}, bytes "
+                             f"{held} of {whole}")
+    split = set(ranks[0]["split"])
+    leaf = lambda k: k[4:].rsplit(".", 1)[0] if k.startswith("opt_") else k
+    replicated = [k for k in ranks[0]["digest"] if leaf(k) not in split]
+    differ = [k for k in replicated if ranks[1]["digest"][k] != ranks[0]["digest"][k]]
+    if differ or not [k for k in ranks[0]["digest"] if leaf(k) in split]:
+        raise SystemExit(f"14: replicated leaves differ across the ranks at {differ[:5]}")
+    gap = phase11_gap(np, ranks[0], alone)
+    tp, one = ranks[0]["tp_state"], alone["tp_state"]
+    moments = {m: per_leaf(np, {k: v.sqrt() if m == "nu" else v for k, v in tp[m].items()},
+                           {k: v.sqrt() if m == "nu" else v for k, v in one[m].items()})
+               for m in ("mu", "nu")}
+    from ieagan_torch.core.config import DEFAULT_CONFIG
+    lr = {net: float(DEFAULT_CONFIG[f"{net}_lr"]) for net in ("G", "D")}
+    param_max = {net: max(float((tp["params"][k] - v).abs().max())
+                          for k, v in one["params"].items() if k.startswith(net + "."))
+                 for net in ("G", "D")}
+    print(phase11_line("1x2 ranks vs one process on the event", gap, "14")
+          + "; moments per-leaf (max, median): mu " + json.dumps(
+              {n: [f"{a:.3e}", f"{b:.3e}"] for n, (a, b) in moments["mu"].items()})
+          + ", sqrt(nu) " + json.dumps(
+              {n: [f"{a:.3e}", f"{b:.3e}"] for n, (a, b) in moments["nu"].items()})
+          + "; params max abs " + json.dumps({n: f"{v:.3e}" for n, v in param_max.items()})
+          + f" (2 x lr: {json.dumps({n: 2 * v for n, v in lr.items()})}); "
+          f"{len(replicated)} replicated tensors bit-equal on both ranks", flush=True)
+    print("14 against 11b's data-parallel gap (G median, D median): "
+          f"{gap['G'][1]:.3e} / {dp_gap['G'][1]:.3e}, {gap['D'][1]:.3e} / {dp_gap['D'][1]:.3e}",
+          flush=True)
+    moments_ok = all(v[0] < STEP_GRAD_MAX and v[1] < (
+        PHASE11_G_MEDIAN if net == "G" else STEP_GRAD_MEDIAN)
+        for m in moments.values() for net, v in m.items())
+    if not (phase11_within(gap) and moments_ok
+            and all(param_max[n] <= 2 * lr[n] for n in ("G", "D"))):
+        raise SystemExit("14: the tensor-parallel step disagrees with the single process")
+    ranks[0]["gap"] = gap
+    return ranks[0]
 
 
 # Phase 13: the user tools, each through its main(argv) as
@@ -2895,7 +3158,7 @@ def main():
     phase("options at full width", t0)
 
     t0 = time.perf_counter()
-    dp_entry_ms, dp_rank0 = parallel_phase(torch, np)
+    dp_entry_ms, dp_rank0, tp_inputs = parallel_phase(torch, np)
     phase("data parallel", t0)
 
     t0 = time.perf_counter()
@@ -2909,6 +3172,11 @@ def main():
     t0 = time.perf_counter()
     tools = tools_phase(torch, np)
     phase("13 user tools", t0)
+
+    t0 = time.perf_counter()
+    tp_rank0 = tensor_parallel_phase(torch, np, tp_inputs, dp_rank0["gap"])
+    del tp_inputs
+    phase("14 tensor parallel", t0)
 
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
@@ -3006,6 +3274,28 @@ def main():
         "bf16": {"max_abs_err": r16["max_abs_err_o"], "ms": r16["ms"],
                  "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
                  "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
+    # Phase 14's sites: each rank's share of the heads or of v's channels
+    # on a 1x2 mesh; launches per rank from its step.
+    for kernel, rs, err_keys in (("B1", rows, ("max_abs_err_o",)),
+                                 ("B2", bwd_rows, ("max_abs_err_dq", "max_abs_err_dk",
+                                                   "max_abs_err_dv"))):
+        for site, b, lq, lkv, dk, dv, _ in TP_SITES:
+            shape = [b, lq, lkv, dk, dv]
+            r, r16 = (pick_site(rs, site, shape, t) for t in ("float32", "bfloat16"))
+            kernels.append({
+                "name": f"attention_{'fwd' if kernel == 'B1' else 'bwd'} ({kernel}) at {site}, "
+                        "tensor parallel",
+                "route": "cuda", "source": kernels[0 if kernel == "B1" else 1]["source"],
+                "replaces": kernels[0 if kernel == "B1" else 1]["replaces"],
+                "launches": tp_rank0["shapes"].get((kernel, tuple(shape)), 0),
+                "max_abs_err": max(r[k] for k in err_keys), "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "site": f"{site} f32 " + "x".join(map(str, shape)) + " (phase 14, per rank of "
+                        "a 1x2 mesh)",
+                "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
+                         "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+                         "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
     kernels.append({
         "name": "attention_fwd (B1) at PEGAN's G attention", "route": "cuda",
         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
@@ -3036,6 +3326,10 @@ def main():
           f"{secs['sqrtm']:.2f}); moments_check rel_diff {tools['proof']['rel_diff']:.3e}; "
           f"finetune_inception {tools['finetune']['step_ms']:.2f} ms per step of "
           f"{TOOLS_FINETUNE['batch']}, peak {tools['finetune']['peak_gib']:.2f} GiB", flush=True)
+    print(f"phase 14: 1x2 mesh over gloo on one card, rank 0 f32 step "
+          f"{tp_rank0['step_ms']:.1f} ms, peak {tp_rank0['peak_gib']:.2f} GiB; gap from one "
+          f"process: G median {tp_rank0['gap']['G'][1]:.3e}, D median "
+          f"{tp_rank0['gap']['D'][1]:.3e}", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

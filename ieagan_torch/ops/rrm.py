@@ -36,11 +36,13 @@ class MultiheadSelfAttention(nn.Module):
     def forward(self, x):
         b, s, _ = x.shape
         head_dim = self.embed_dim // self.num_heads
-        qkv = self.qkv_proj(x).reshape(b, s, self.num_heads, 3 * head_dim)
+        # the heads this rank computes: all, or its own when qkv_proj and
+        # o_proj are a split pair (parallel/tensor.py)
+        qkv = self.qkv_proj(x).reshape(b, s, -1, 3 * head_dim)
         q, k, v = qkv.transpose(1, 2).chunk(3, dim=-1)  # (b, heads, s, hd) each
         values = dot_softmax_attention(q, k, v, scale=1.0 / float(head_dim) ** 0.5,
                                        fused=self.fused)
-        return self.o_proj(values.transpose(1, 2).reshape(b, s, self.embed_dim))
+        return self.o_proj(values.transpose(1, 2).reshape(b, s, -1))
 
 
 class EncoderBlock(nn.Module):

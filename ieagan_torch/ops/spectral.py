@@ -14,6 +14,13 @@ The conv's flattened fan-in order differs from the JAX package's
 ``(kh, kw, I)``, but the singular values and ``u`` (which lives in the output
 space) do not depend on it. Parameters are allocated empty; the owner calls
 ``reset_parameters(generator)`` or loads a state dict.
+
+A layer split over the mesh's model axis (``parallel/tensor.py``) holds a
+block of rows or columns of the (out, fan-in) matrix; its power iteration
+runs over the axis without gathering W: each contraction over the split axis
+sums its partial vector over the ranks, each vector the iteration keeps is
+whole (a split one is gathered), and sigma is the sum of the ranks' partial
+``v W uᵀ``. ``u`` and ``sv`` stay whole and equal on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ieagan_torch.ops.remat import recompute_u
+from ieagan_torch.parallel.collectives import model_cat, model_copy, model_reduce, model_sum
 
 
 def _l2normalize(v, eps: float):
@@ -30,23 +38,41 @@ def _l2normalize(v, eps: float):
     return v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
 
 
-def power_iteration(w_mat, us, n_itrs: int, eps: float):
+def power_iteration(w_mat, us, n_itrs: int, eps: float, split=None):
     """Power iteration(s) with Gram-Schmidt over tracked singular vectors.
 
     w_mat: (out, k); us: (num_svs, out). Returns ``(svs, new_us)``: the
     (num_svs,) singular-value estimates, with gradient through ``w_mat``, and
-    the updated (num_svs, out) vectors, without gradient.
+    the updated (num_svs, out) vectors, without gradient. With ``split =
+    (axis, mesh)``, ``w_mat`` is this model rank's block of rows (axis 0) or
+    columns (axis 1) of the whole matrix, ``us`` is whole, and every rank of
+    the axis gets the whole matrix's results (module docstring); sigma's
+    gradient reaches each rank's block through the sum over the ranks.
     """
     w = w_mat.detach()
+    axis, mesh = split if split is not None else (None, None)
+    if axis is not None:
+        n = w.shape[axis]
+        block = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
     vs = []
     for _ in range(n_itrs):
         new_us, vs = [], []
         for i in range(us.shape[0]):
-            v = us[i] @ w
+            if axis == 0:
+                v = model_sum(us[i][block] @ w, mesh)
+            elif axis == 1:
+                v = model_cat(us[i] @ w, 0, mesh)
+            else:
+                v = us[i] @ w
             for v_prev in vs:  # Gram-Schmidt (reference: layers.py:82-85)
                 v = v - (v @ v_prev) * v_prev / torch.clamp(v_prev @ v_prev, min=eps)
             v = _l2normalize(v, eps)
-            u = v @ w.T
+            if axis == 0:
+                u = model_cat(v @ w.T, 0, mesh)
+            elif axis == 1:
+                u = model_sum(v[block] @ w.T, mesh)
+            else:
+                u = v @ w.T
             for u_prev in new_us:
                 u = u - (u @ u_prev) * u_prev / torch.clamp(u_prev @ u_prev, min=eps)
             u = _l2normalize(u, eps)
@@ -55,12 +81,19 @@ def power_iteration(w_mat, us, n_itrs: int, eps: float):
         us = torch.stack(new_us)
     vs = torch.stack(vs).detach()
     us = us.detach()
-    svs = torch.einsum("sk,ok,so->s", vs, w_mat, us)
-    return svs, us
+    if axis is None:
+        return torch.einsum("sk,ok,so->s", vs, w_mat, us), us
+    local_vs, local_us = (vs, us[:, block]) if axis == 0 else (vs[:, block], us)
+    partial = torch.einsum("sk,ok,so->s", local_vs, w_mat, local_us)
+    # every rank's sigma sees only its block's gradient: the sum's backward
+    # sums them (model_copy), and the forward sums the partials (model_reduce)
+    return model_reduce(model_copy(partial, mesh), mesh), us
 
 
 class _SpectralNorm(nn.Module):
     """Buffers and power iteration shared by the SN layers."""
+
+    sn_split = None  # (axis, mesh) of a layer split over the model axis
 
     def _init_sn(self, out_features: int, num_svs: int, num_itrs: int, eps: float):
         self.num_itrs = num_itrs
@@ -80,7 +113,7 @@ class _SpectralNorm(nn.Module):
         w_mat = self.weight.reshape(self.weight.shape[0], -1)
         u0 = recompute_u(self)
         svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
-                                      self.eps)
+                                      self.eps, self.sn_split)
         if self.training and u0 is None:
             with torch.no_grad():
                 self.u.copy_(new_us)

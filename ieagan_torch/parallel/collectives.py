@@ -1,4 +1,4 @@
-"""Collectives over the mesh's data axis, with autograd.
+"""Collectives over the mesh's two axes, with autograd.
 
 The JAX package has no twin of this module: under ``jax.jit`` with the event
 axis sharded, XLA inserts the all-reduces that batch-wide reductions need.
@@ -10,15 +10,35 @@ gradients and the metrics. The models' three take their mesh from
 ``global_batch``, a context the step enters.
 
 Each function takes a ``core/mesh.py::Mesh`` (or ``None``) and is the
-identity with one process. The backward of each is its adjoint, so a rank's
-``backward()`` yields its share of the gradient of the mean of the ranks'
-losses once ``all_reduce_grads`` has averaged it:
+identity with one process. The data axis's run over ``mesh.data_group``
+(the ranks of one model index, which hold different rows); the backward of
+each is its adjoint, so a rank's ``backward()`` yields its share of the
+gradient of the mean of the ranks' losses once ``all_reduce_grads`` has
+averaged it:
 
   * ``all_reduce_sum``: forward and backward both sum over the ranks;
   * ``all_gather_rows``: forward concatenates every rank's rows in rank
     order; backward sums the gathered gradient over the ranks and keeps this
     rank's rows (a reduce-scatter, written as an all-reduce and a slice
     because gloo has no reduce-scatter).
+
+The model axis's (Megatron's operators) run over ``mesh.model_group``,
+whose ranks hold the same rows and compute the same loss, so the gradient
+reaching an operator's output is the whole gradient on every rank:
+
+  * ``model_gather``: forward all-gathers the ranks' slices along a dim,
+    backward keeps this rank's slice;
+  * ``model_scatter``: forward keeps this rank's slice, backward
+    all-gathers;
+  * ``model_reduce``: forward sums the ranks' partial results, backward is
+    the identity;
+  * ``model_copy``: forward is the identity, backward sums the ranks'
+    partial gradients (of a replicated input feeding split weights).
+
+``all_reduce_sum``'s backward would sum the ranks' whole gradients on the
+model axis and make them M times too large; a sum of partials whose
+gradients are partial too (a split layer's sigma, ``ops/spectral.py``) is
+``model_reduce(model_copy(x))``.
 """
 
 from __future__ import annotations
@@ -37,6 +57,11 @@ _BATCH_MESH = contextvars.ContextVar("batch_mesh", default=None)
 
 def _single(mesh) -> bool:
     return mesh is None or mesh.n_data == 1
+
+
+def model_parallel(mesh) -> bool:
+    """True when ``mesh`` has a model axis of more than one rank."""
+    return mesh is not None and mesh.n_model > 1
 
 
 @contextlib.contextmanager
@@ -58,18 +83,33 @@ def batch_mesh():
     return _BATCH_MESH.get()
 
 
+def _summed(x, group):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _cat(x, n, group, dim=0):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def _slice(x, n, index, dim):
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size).contiguous()
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        out = x.contiguous().clone()
-        dist.all_reduce(out)
-        return out
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad
+        return _summed(grad, ctx.group), None
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -80,23 +120,20 @@ class _AllGatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        grad = _summed(grad, ctx.mesh.data_group)
         return grad[ctx.mesh.rows(ctx.n_local)], None
 
 
 def _gather(x, mesh):
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
-    dist.all_gather(parts, x)
-    return torch.cat(parts)
+    return _cat(x, mesh.n_data, mesh.data_group)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (every rank's ``x`` of one shape)."""
+    """The sum of ``x`` over the data axis's ranks (every rank's ``x`` of
+    one shape)."""
     if _single(mesh):
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, mesh.data_group)
 
 
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -121,27 +158,130 @@ def _in_one_bucket(tensors: list, op) -> None:
 
 
 @torch.no_grad()
-def all_reduce_grads(module: torch.nn.Module, mesh) -> None:
-    """Average every parameter's ``.grad`` over the ranks, through one flat
-    bucket; every parameter must have a gradient (the step zero-fills)."""
-    if _single(mesh):
-        return
+def all_reduce_grads(module: torch.nn.Module, mesh, split: frozenset = frozenset()) -> None:
+    """Average every parameter's ``.grad`` over the data axis's ranks,
+    through one flat bucket; every parameter must have a gradient (the step
+    zero-fills). The gradients of the replicated parameters (those not in
+    ``split``, a set of ``id``s of this rank's shards) are then averaged
+    over the model axis too: its ranks compute them from the same rows, and
+    cuDNN's weight gradients need not agree bit for bit, so without it the
+    replicas would drift apart."""
+    params = list(module.parameters())
+    if not _single(mesh):
+        def average(flat):
+            dist.all_reduce(flat, group=mesh.data_group)
+            flat.div_(mesh.n_data)
 
-    def average(flat):
-        dist.all_reduce(flat)
-        flat.div_(mesh.n_data)
+        _in_one_bucket([p.grad for p in params], average)
+    if model_parallel(mesh):
+        def model_average(flat):
+            dist.all_reduce(flat, group=mesh.model_group)
+            flat.div_(mesh.n_model)
 
-    _in_one_bucket([p.grad for p in module.parameters()], average)
+        _in_one_bucket([p.grad for p in params if id(p) not in split], model_average)
 
 
 @torch.no_grad()
 def broadcast_tensors(tensors: list, mesh, src: int = 0) -> None:
-    """Overwrite ``tensors`` in place with rank ``src``'s values, one flat
-    bucket per dtype."""
-    if _single(mesh):
+    """Overwrite ``tensors`` in place with rank ``src``'s values on every
+    rank of the world, one flat bucket per dtype."""
+    if mesh is None or mesh.n_data * mesh.n_model == 1:
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for same in by_dtype.values():
         _in_one_bucket(same, lambda flat: dist.broadcast(flat, src=src))
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _cat(x, mesh.n_model, mesh.model_group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.mesh.n_model, ctx.mesh.model_index, ctx.dim), None, None
+
+
+class _ModelScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _slice(x, mesh.n_model, mesh.model_index, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _cat(grad, ctx.mesh.n_model, ctx.mesh.model_group, ctx.dim), None, None
+
+
+class _ModelReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _summed(x, mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.mesh.model_group), None
+
+
+def model_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The model axis's slices of ``x`` concatenated along ``dim`` in rank
+    order; the backward keeps this rank's slice."""
+    if not model_parallel(mesh):
+        return x
+    if not x.requires_grad:
+        return _cat(x, mesh.n_model, mesh.model_group, dim)
+    return _ModelGather.apply(x, dim, mesh)
+
+
+def model_scatter(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This model rank's slice of ``x`` along ``dim``; the backward
+    all-gathers the slices' gradients."""
+    if not model_parallel(mesh):
+        return x
+    if not x.requires_grad:
+        return _slice(x, mesh.n_model, mesh.model_index, dim)
+    return _ModelScatter.apply(x, dim, mesh)
+
+
+def model_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the model axis's partial ``x``; the backward passes the
+    gradient through."""
+    if not model_parallel(mesh):
+        return x
+    if not x.requires_grad:
+        return _summed(x, mesh.model_group)
+    return _ModelReduce.apply(x, mesh)
+
+
+def model_copy(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` itself; the backward sums the model axis's partial gradients."""
+    if not model_parallel(mesh) or not x.requires_grad:
+        return x
+    return _ModelCopy.apply(x, mesh)
+
+
+@torch.no_grad()
+def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the model axis, without autograd."""
+    return _summed(x, mesh.model_group) if model_parallel(mesh) else x
+
+
+@torch.no_grad()
+def model_cat(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The model axis's slices of ``x`` concatenated along ``dim``, without
+    autograd."""
+    return _cat(x, mesh.n_model, mesh.model_group, dim) if model_parallel(mesh) else x

@@ -19,14 +19,17 @@ logs FID (and KID and physics extras) to the metrics stream, keeps invalid
 FIDs out of ``best_FID``, and writes ``best<n>`` checkpoints rotating over
 ``num_best_copies``.
 
-Data parallel (the JAX driver's mesh path, ``ieagan_tpu/train/driver.py:
-219-256``): with ``mesh`` set, or under a launcher with several processes,
-one process per GPU trains the sharded step (``parallel/sharding.py``) on
-its rows of every batch; rank 0's state is broadcast first, and rank 0 alone
-writes logs, metadata, checkpoints and samples and runs the FID test while
-the others wait. Tensor parallelism (a ``model`` axis) is refused. The JAX
-driver's retries on ``RESOURCE_EXHAUSTED`` exist for a network-attached TPU
-and have no twin.
+The mesh (the JAX driver's mesh path, ``ieagan_tpu/train/driver.py:
+219-256``): with ``mesh`` set (``"N"``, ``"NxM"``, ``{"data": N, "model":
+M}``), or under a launcher with several processes, one process per GPU
+trains the sharded step (``parallel/sharding.py``) on its data index's rows
+of every batch; rank 0's state is broadcast first, and rank 0 alone writes
+logs, metadata, checkpoints and samples and runs the FID test while the
+others wait. With a ``model`` axis (tensor parallelism) each rank holds its
+shards of the split leaves; every rank gathers them whole before a
+checkpoint, and rank 0 saves, samples and tests on that whole state. The
+JAX driver's retries on ``RESOURCE_EXHAUSTED`` exist for a network-attached
+TPU and have no twin.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import denorm
 from ieagan_torch.parallel import distributed
-from ieagan_torch.parallel.sharding import make_sharded_train_step, place_state
+from ieagan_torch.parallel.sharding import full_state, make_sharded_train_step, place_state
 from ieagan_torch.train.step import init_train_state
 from ieagan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ieagan_torch.utils.logging import Logger, MetricsLogger
@@ -74,10 +77,10 @@ def resolve_device(device) -> torch.device:
 
 
 def build_mesh(config: dict):
-    """The run's data axis, or None for one process: the ``mesh`` key
-    (``{"data": N}``, ``"N"``, ...; a ``model`` axis is refused), else every
-    process of a launch with several (the JAX driver's auto-mesh). The
-    events of a batch must divide over it."""
+    """The run's mesh, or None for one process: the ``mesh`` key
+    (``{"data": N, "model": M}``, ``"NxM"``, ``"N"``, ...), else every
+    process of a launch with several on the data axis (the JAX driver's
+    auto-mesh). The events of a batch must divide over the data axis."""
     epb = int(config.get("events_per_batch", 1))
     world = distributed.world_size()
     if config.get("mesh"):
@@ -251,8 +254,9 @@ def run(config: dict, device="cuda"):
     config = dict(DEFAULT_CONFIG, **config)
     device = resolve_device(device)
     mesh = build_mesh(config)
-    n_ranks, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.rank)
-    is_main = rank == 0
+    # the data axis: this rank's rows, its events and its share of the loader
+    n_ranks, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index)
+    is_main = distributed.rank() == 0
     say = print if is_main else (lambda *args, **kwargs: None)
     seed = int(config["seed"])
     np.random.seed(seed)
@@ -270,8 +274,11 @@ def run(config: dict, device="cuda"):
     say(f"Param count for G: {sum(p.numel() for p in G.parameters())}")
     say(f"Param count for D: {sum(p.numel() for p in D.parameters())}")
     say(f"device: {device}, compute dtype {policy.compute_dtype}, events/batch: {epb}"
-        + ("" if mesh is None else f", mesh {mesh.shape} over {n_ranks} processes "
+        + ("" if mesh is None else f", mesh {mesh.shape} over "
+           f"{mesh.n_data * mesh.n_model} processes "
            f"({distributed.backend() or 'no process group'})"))
+    if mesh is not None:
+        say(f"mesh: {mesh.shape} tp={mesh.n_model > 1}")
 
     state_dict = {"itr": 0, "epoch": 0, "save_num": 0, "save_best_num": 0,
                   "best_FID": 999999.0}
@@ -314,11 +321,12 @@ def run(config: dict, device="cuda"):
         write_metadata(config, state_dict)
 
     def on_main(fn, *args):
-        """``fn`` on rank 0 while the others wait; then every rank takes rank
-        0's bookkeeping (save and best-FID counters)."""
-        if is_main:
-            fn(*args)
-        state_dict.update(distributed.broadcast_object(state_dict))
+        """``fn`` on rank 0, on the whole state, while the others wait; then
+        every rank takes rank 0's bookkeeping (save and best-FID counters)."""
+        with full_state(state, mesh):
+            if is_main:
+                fn(*args)
+            state_dict.update(distributed.broadcast_object(state_dict))
 
     use_device_transform = False
     epb_local = max(1, epb) // n_ranks

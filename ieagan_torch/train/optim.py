@@ -33,6 +33,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ieagan_torch.parallel.collectives import model_sum
+
 _F32 = np.float32
 ADABELIEF_EPS_ROOT = 1e-16  # optax.adabelief's default
 
@@ -132,16 +134,27 @@ class OptaxAdam(torch.optim.Optimizer):
         return ("mu", "nu", "nu_max") if self.variant == "amsgrad" else ("mu", "nu")
 
     @torch.no_grad()
-    def step(self, lr: float | Callable[[int], float]):
+    def step(self, lr: float | Callable[[int], float], model_split=None):
         """One update at ``lr``: a float, or a function of ``sched_count``
-        (``make_lr_schedule``)."""
+        (``make_lr_schedule``). ``model_split = (mesh, ids)`` names the
+        parameters that hold a shard over the mesh's model axis (their
+        ``id``s): the global norm that ``clip_norm`` reads sums their squares
+        over the axis and counts each replicated parameter once."""
         group = self.param_groups[0]
         b1, b2, eps = group["b1"], group["b2"], group["eps"]
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if self.clip_norm is not None:
             # optax.clip_by_global_norm: unchanged below the threshold, else t / norm * max
-            norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+            squares = torch.stack([torch.sum(g * g) for g in grads])
+            if model_split is None:
+                total = squares.sum()
+            else:
+                mesh, ids = model_split
+                split = torch.tensor([id(p) in ids for p in params], device=squares.device)
+                total = (squares[~split].sum()
+                         + model_sum(squares[split].sum().reshape(1), mesh)[0])
+            norm = torch.sqrt(total)
             keep = norm < self.clip_norm
             grads = [torch.where(keep, g, g / norm * self.clip_norm) for g in grads]
         mus = [self.state[p]["mu"] for p in params]

@@ -77,6 +77,20 @@ batch of N·b, as the JAX package's step does under its sharded jit:
     losses (hinge terms: the mean of the ranks' means; gathered terms: every
     rank's copy of the one value);
   * the metrics are the ranks' means, the global batch's values.
+
+Tensor parallel (a mesh with a ``model`` axis, ``parallel/sharding.py``
+places the state): the ranks of one data index hold the same rows, the same
+draws and each its shard of every leaf the JAX rule splits, and compute what
+one process computes (the split layers, ``parallel/tensor.py``):
+
+  * the data axis's reductions above run over the ranks of one model index
+    (``core/mesh.py::Mesh.data_group``);
+  * a shard's gradient is averaged over the data axis only; a replicated
+    parameter's over the data axis and then over the model axis, which
+    keeps its replicas equal (cuDNN's weight gradients need not agree bit
+    for bit);
+  * ortho-reg and ``clip_norm``'s global norm span the model axis
+    (``train/ortho.py``, ``train/optim.py``); the EMA is local.
 """
 
 from __future__ import annotations
@@ -95,7 +109,8 @@ from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import (cr_diff_augment, diff_augment, sample_cr_draws,
                                        sample_diff_aug_draws)
 from ieagan_torch.parallel.collectives import (all_gather_rows, all_reduce_grads,
-                                               all_reduce_sum, global_batch)
+                                               all_reduce_sum, global_batch, model_parallel)
+from ieagan_torch.parallel.tensor import split_parameters
 from ieagan_torch.train.optim import lr_schedules, make_optimizers
 from ieagan_torch.train.ortho import apply_ortho_reg
 from ieagan_torch.utils.checkpoint import load_checkpoint
@@ -261,12 +276,15 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     def finish_grads(module, strength, blacklist=()):
         """A parameter the loss did not reach gets a zero gradient, since
         optax updates every leaf; the gradients are averaged over the ranks,
-        then ortho-reg is added (to a zero gradient it is the term alone)."""
+        then ortho-reg is added (to a zero gradient it is the term alone).
+        Returns the optimizer's ``model_split`` (None without a model axis)."""
         for p in module.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        all_reduce_grads(module, mesh)
+        split = split_parameters(module)
+        all_reduce_grads(module, mesh, split)
         apply_ortho_reg(module, strength, blacklist)
+        return (mesh, split) if model_parallel(mesh) else None
 
     def global_means(mets):
         """The ranks' mean of each metric (one all-reduce)."""
@@ -335,10 +353,10 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
                     mets["unif_loss_d"] = u
                 (d_loss / float(num_D_acc)).backward()
                 embed_real = embed_r_all.detach() if contra_on else None
-            finish_grads(D, d_ortho)
+            split = finish_grads(D, d_ortho)
             if capture_grads:
                 metrics["_grads_D"] = capture(D)
-            state.opt_D.step(d_lr)
+            state.opt_D.step(d_lr, split)
             metrics.update(global_means(mets))
 
         # ---------------- G phase ----------------
@@ -367,11 +385,11 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
             g_loss = g_loss / float(num_G_acc)
             mets["G_loss"] = g_loss
             g_loss.backward()
-        finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
+        split = finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
         if capture_grads:
             metrics["_grads_G"] = capture(G)
         if not skip_g_update:
-            state.opt_G.step(g_lr)
+            state.opt_G.step(g_lr, split)
         metrics.update(global_means(mets))
 
         # ---------------- EMA ----------------

@@ -8,10 +8,14 @@ run's bookkeeping and ``itr``. Both packages read and write the same files:
 the port converts its modules and optimizers with ``models/convert.py`` and
 writes with its own msgpack writer, each file atomically (temporary file,
 then rename). Under data parallelism every rank holds the same state: the
-driver calls ``save_checkpoint`` on rank 0 alone and nothing is gathered
-(``ieagan_tpu/utils/checkpoint.py:144``); every rank may read. The JAX package's device-to-host
-packing (``_to_host``, ``utils/transfer.py``) exists for a network-attached
-TPU and has no twin.
+driver calls ``save_checkpoint`` on rank 0 alone (``ieagan_tpu/utils/
+checkpoint.py:144``); every rank may read. Under tensor parallelism each
+rank holds shards: every rank gathers them whole first
+(``parallel/sharding.py::full_state``), so rank 0 writes the files one
+process writes, and ``load_checkpoint`` with the mesh reads the whole leaves
+and keeps each rank's shards; a checkpoint so moves between a 1x1, a 1x2 and
+a 2x2 mesh. The JAX package's device-to-host packing (``_to_host``,
+``utils/transfer.py``) exists for a network-attached TPU and has no twin.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ieagan_torch.models.convert import (discriminator_state_from_flax,
                                          generator_state_to_flax,
                                          optimizer_state_from_flax,
                                          optimizer_state_to_flax)
+from ieagan_torch.parallel.tensor import split_layers
 from ieagan_torch.utils.flax_msgpack import (latest_checkpoint, msgpack_serialize,
                                              read_checkpoint)
 
@@ -45,9 +50,17 @@ def _atomic_write(path: pathlib.Path, data: bytes):
     os.replace(tmp, path)
 
 
+def _refuse_shards(state):
+    if any(split_layers(net) for net in (state.G, state.D, state.G_ema)):
+        raise ValueError("the state holds tensor-parallel shards: gather it whole first "
+                         "(parallel/sharding.py::full_state), or pass the mesh to load")
+
+
 def save_checkpoint(weights_dir, state, state_dict: dict, name_suffix: str | None = None):
     """Save every component of the ``TrainState`` ``state`` and
-    ``state_dict`` (with ``itr`` set to the state's) under ``weights_dir``."""
+    ``state_dict`` (with ``itr`` set to the state's) under ``weights_dir``.
+    A state holding shards is refused."""
+    _refuse_shards(state)
     weights_dir = pathlib.Path(weights_dir)
     components = {
         "G": generator_state_to_flax(state.G),
@@ -97,11 +110,22 @@ def _load_optimizer(path: pathlib.Path, opt, model, itr: int):
 
 
 def load_checkpoint(weights_dir, state, name_suffix: str | None = None,
-                    load_optim: bool = True):
+                    load_optim: bool = True, mesh=None):
     """Restore the ``TrainState`` ``state`` in place from checkpoint
     ``name_suffix`` under ``weights_dir``: G, D and G_ema, with
     ``load_optim`` the Adam moments and counts, and ``itr``. Returns
-    ``(state, state_dict)``."""
+    ``(state, state_dict)``. A state holding tensor-parallel shards needs
+    its ``mesh``, and every rank of it calls this: each reads the whole
+    leaves and keeps its shards."""
+    if mesh is not None and mesh.n_model > 1:
+        from ieagan_torch.parallel.sharding import full_state
+        with full_state(state, mesh):
+            return _load(weights_dir, state, name_suffix, load_optim)
+    _refuse_shards(state)
+    return _load(weights_dir, state, name_suffix, load_optim)
+
+
+def _load(weights_dir, state, name_suffix, load_optim):
     weights_dir = pathlib.Path(weights_dir)
     with open(weights_dir / f"{_join(name_suffix, 'state_dict')}.json") as fp:
         sd = json.load(fp)

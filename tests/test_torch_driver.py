@@ -210,12 +210,13 @@ def test_save_event_grid_matches_jax(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
-    """A mesh with a model axis (tensor parallelism) is not ported; a data
-    axis wider than the processes launched is refused before any step. The
-    data-parallel mesh itself trains (``test_two_rank_driver_run``)."""
+    """A mesh wider than the processes launched, on the model axis or the
+    data axis, is refused before any step. The meshes themselves train
+    (``test_two_rank_driver_run``; a model axis,
+    ``tests/test_torch_tensor_parallel.py``)."""
     cfg = tiny_config(outputroot=str(tmp_path), run_name="r", **dict(RUN, test_every=2))
     initialize_directories(cfg)
-    with pytest.raises(NotImplementedError, match="tensor parallelism, ROADMAP §A"):
+    with pytest.raises(ValueError, match="world of 1"):
         run(dict(cfg, mesh="2x2"), device="cpu")
     with pytest.raises(ValueError, match="world of 1"):
         run(dict(cfg, mesh="2"), device="cpu")

@@ -147,10 +147,12 @@ def _step_seam(z):
         mp.undo()
 
 
-def _jax_mesh_step(state, cfg, x, y, rdof, key, mesh):
+def _jax_mesh_step(state, cfg, x, y, rdof, key, mesh, tensor_parallel=False):
     """``make_sharded_train_step`` on ``mesh`` (inside ``_step_seam``) with
-    rdof written into G's ``linear_f`` input, D phase then G phase. Flax's
-    method interceptors are per thread, so several cases run at once."""
+    rdof written into G's ``linear_f`` input, D phase then G phase, the
+    state placed by ``place_state`` (split over the model axis with
+    ``tensor_parallel``). Flax's method interceptors are per thread, so
+    several cases run at once."""
     rdof_iter = iter(rdof)
 
     def interceptor(next_fun, args, kwargs, context):
@@ -159,9 +161,11 @@ def _jax_mesh_step(state, cfg, x, y, rdof, key, mesh):
         return next_fun(*args, **kwargs)
 
     jG, jD = JaxG.from_config(cfg), JaxD.from_config(cfg)
-    step = jax_sharding.make_sharded_train_step(jG, jD, cfg, mesh)
+    step = jax_sharding.make_sharded_train_step(jG, jD, cfg, mesh,
+                                                tensor_parallel=tensor_parallel)
     # the step donates its state: it takes a copy
-    placed = jax_sharding.place_state(jax.tree_util.tree_map(jnp.copy, state), mesh)
+    placed = jax_sharding.place_state(jax.tree_util.tree_map(jnp.copy, state), mesh,
+                                      tensor_parallel=tensor_parallel)
     with nn.intercept_methods(interceptor):
         new_state, mets = step(placed, x, y, key)
     jax.block_until_ready(new_state.params_G)
@@ -406,11 +410,11 @@ def test_parse_mesh_spec_matches_jax(spec):
 
 def test_make_mesh_spans_the_world_and_refuses_a_model_axis():
     """One process: the data axis is 1 and every collective the identity;
-    a model axis (tensor parallelism) and an axis wider than the world are
-    refused."""
+    a mesh wider than the world is refused, on either axis (a 1x2 mesh
+    needs two processes: tensor parallelism, ``tests/test_torch_tensor_parallel.py``)."""
     mesh = port_mesh.make_mesh()
     assert (mesh.n_data, mesh.rank, mesh.shape) == (1, 0, {"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="tensor parallelism, ROADMAP §A"):
+    with pytest.raises(ValueError, match="world of 1"):
         port_mesh.make_mesh(1, 2)
     with pytest.raises(ValueError, match="world of 1"):
         port_mesh.make_mesh(2)

@@ -1,10 +1,12 @@
-"""Rank processes for the port's data-parallel tests, spawned on the CPU.
+"""Rank processes for the port's data- and tensor-parallel tests, spawned
+on the CPU.
 
 Imports torch and the port only, so a spawned rank starts in a second or
 two. ``run_step_rank`` runs the cases of a job file through the sharded
-train step over gloo; ``run_cli_rank`` runs ``train_torch.py``'s ``main``
-with the environment ``torchrun`` gives a rank. Both write their results to
-a file per rank.
+train step over gloo; ``run_tp_rank`` does so on a mesh with a model axis,
+with its checkpoint and module checks; ``run_cli_rank`` runs
+``train_torch.py``'s ``main`` with the environment ``torchrun`` gives a
+rank. Each writes its results to a file per rank.
 """
 
 from __future__ import annotations
@@ -52,9 +54,12 @@ def run_cases(cases: list, mesh) -> list:
     ``steps``, either ``schedule`` (global draws, one list per step) or
     ``seed`` (a generator in the same state on every rank), and optionally
     ``prior``, the prior-feature table the case runs with (the process's
-    own table is restored after it). Returns per case the metrics of every
+    own table is restored after it), and ``save``, a dir to checkpoint the
+    state after the first step into. Returns per case the metrics of every
     step; the gradients of the first step and the state dicts and Adam
-    moments after it; and the digest of the final state."""
+    moments after it (split leaves gathered whole); the digest of the final
+    state and, on a mesh with a model axis, the elements this rank holds of
+    every parameter and moment."""
     from ieagan_torch.ops import prior
 
     results = []
@@ -69,9 +74,9 @@ def run_cases(cases: list, mesh) -> list:
     return results
 
 
-def _snapshot(state, mets) -> dict:
+def _snapshot(state, grads) -> dict:
     return {
-        "grads": {"G": mets["_grads_G"], "D": mets["_grads_D"]},
+        "grads": grads,
         "state": {net: {k: v.clone() for k, v in getattr(state, net).state_dict().items()}
                   for net in ("G", "D", "G_ema")},
         "moments": {net: {n: {m: getattr(state, f"opt_{net}").state[p][m].clone()
@@ -80,10 +85,12 @@ def _snapshot(state, mets) -> dict:
                     for net in ("G", "D")}}
 
 
-def _run_case(case: dict, mesh) -> dict:
+def case_state(case: dict, mesh):
+    """The ``TrainState`` of a case's config and initial weights (fresh Adam
+    moments), holding this rank's shards on a mesh with a model axis."""
     from ieagan_torch.models.discriminator import Discriminator
     from ieagan_torch.models.generator import Generator
-    from ieagan_torch.parallel.sharding import host_local_batch, make_sharded_train_step
+    from ieagan_torch.parallel.sharding import split_state
     from ieagan_torch.train.optim import make_optimizers
     from ieagan_torch.train.step import TrainState
 
@@ -93,7 +100,31 @@ def _run_case(case: dict, mesh) -> dict:
     for module, name in ((G, "G"), (D, "D"), (G_ema, "G_ema")):
         module.load_state_dict(case[name], strict=True)
     G_ema.eval().requires_grad_(False)
-    state = TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg))
+    return split_state(TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg)),
+                       mesh)
+
+
+def local_numels(state) -> dict:
+    """The number of elements this rank holds of every parameter of G, D and
+    G_ema and of every Adam moment."""
+    out = {}
+    for net in ("G", "D", "G_ema"):
+        module = getattr(state, net)
+        opt = getattr(state, f"opt_{net}", None)
+        for name, p in module.named_parameters():
+            out[f"{net}.{name}"] = p.numel()
+            for m in (() if opt is None else opt.moment_names):
+                out[f"opt_{net}.{name}.{m}"] = opt.state[p][m].numel()
+    return out
+
+
+def _run_case(case: dict, mesh) -> dict:
+    from ieagan_torch.parallel.sharding import (full_state, full_tensors, host_local_batch,
+                                                make_sharded_train_step)
+
+    cfg = case["config"]
+    state = case_state(case, mesh)
+    G, D = state.G, state.D
     x, y = host_local_batch(mesh, case["x"], case["y"])
     generator = torch.Generator().manual_seed(case.get("seed", 0))
     result = {"metrics": []}
@@ -104,9 +135,29 @@ def _run_case(case: dict, mesh) -> dict:
         mets = step(state, x, y, generator)
         result["metrics"].append({k: v for k, v in mets.items() if not k.startswith("_")})
         if i == 0:
-            result.update(_snapshot(state, mets))
+            grads = {net: full_tensors(getattr(state, net), mets[f"_grads_{net}"], mesh)
+                     for net in ("G", "D")}
+            with full_state(state, mesh):
+                result.update(_snapshot(state, grads))
+            if "save" in case:
+                _save(state, mesh, case["save"])
     result["digest"] = state_digest(state)
+    if mesh is not None and mesh.n_model > 1:
+        result["numel"] = local_numels(state)
     return result
+
+
+def _save(state, mesh, path):
+    """Checkpoint ``copy<itr>`` of ``state`` under ``path``, written by rank
+    0 from the whole state."""
+    from ieagan_torch.parallel.sharding import full_state
+    from ieagan_torch.utils.checkpoint import save_checkpoint
+
+    with full_state(state, mesh):
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint(path, state, {}, f"copy{state.itr}")
+        if mesh is not None:
+            dist.barrier()
 
 
 def bn_forward(job: dict, mesh) -> dict:
@@ -147,6 +198,72 @@ def run_step_rank(rank: int, world: int, init_file: str, job_path: str, out_dir:
         mesh = make_mesh(world)
         job = torch.load(job_path, weights_only=False)
         out = {"bn": bn_forward(job["bn"], mesh), "cases": run_cases(job["cases"], mesh)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def checkpoint_round_trip(job: dict, mesh) -> dict:
+    """Load the one-process checkpoint ``job["load"]`` (dir, tag) into a
+    state of ``job["case"]`` under ``mesh`` (each rank keeps its shards),
+    save it again under ``job["resave"]``, and return the whole state as
+    loaded (every tensor of G, D, G_ema and the Adam moments) with the
+    counts."""
+    from ieagan_torch.parallel.sharding import full_state
+    from ieagan_torch.utils.checkpoint import load_checkpoint
+
+    state = case_state(job["case"], mesh)
+    path, tag = job["load"]
+    load_checkpoint(path, state, tag, mesh=mesh)
+    numel = local_numels(state)
+    with full_state(state, mesh):
+        whole = _snapshot(state, {})
+        whole["counts"] = (state.itr, state.opt_G.count, state.opt_D.count)
+    _save(state, mesh, job["resave"])
+    whole["numel"] = numel
+    return whole
+
+
+def split_attention(job: dict, mesh) -> dict:
+    """The RRM's attention of ``job`` (``MultiheadSelfAttention`` with its
+    weights) split over ``mesh``'s model axis: its output, the input's
+    gradient and the parameters' gradients (gathered whole) of the sum of
+    ``out * w``, and which of its layers were split and paired."""
+    from ieagan_torch.ops.rrm import MultiheadSelfAttention
+    from ieagan_torch.ops.spectral import Linear
+    from ieagan_torch.parallel import tensor
+    from ieagan_torch.parallel.sharding import full_tensors, split_rule
+
+    m = MultiheadSelfAttention(job["dim"], job["heads"], Linear)
+    m.load_state_dict(job["weights"])
+    for name, split in tensor.layer_splits(m, split_rule(m, mesh.n_model), mesh).items():
+        tensor.split_layer(m.get_submodule(name), split)
+    x = job["x"].clone().requires_grad_(True)
+    out = m(x)
+    torch.sum(out * job["w"]).backward()
+    return {"out": out.detach(), "x_grad": x.grad,
+            "grads": full_tensors(m, {n: p.grad for n, p in m.named_parameters()}, mesh),
+            "splits": {n: (s.tp.style, s.tp.paired) for n, s in tensor.split_layers(m)}}
+
+
+def run_tp_rank(rank: int, world: int, init_file: str, job_path: str, out_dir: str):
+    """One rank of a tensor-parallel job: join the gloo group through
+    ``init_file``, run the job's step cases on its ``mesh`` (n_data,
+    n_model), then its checkpoint round trip (``checkpoint``) and its split
+    attention (``attention``, on a 1 x world mesh) where the job has them;
+    save the results as ``rank<r>.pt`` under ``out_dir``."""
+    _rank_env()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        from ieagan_torch.core.mesh import make_mesh
+        job = torch.load(job_path, weights_only=False)
+        mesh = make_mesh(*job["mesh"])
+        out = {"cases": run_cases(job["cases"], mesh)}
+        if "checkpoint" in job:
+            out["checkpoint"] = checkpoint_round_trip(job["checkpoint"], mesh)
+        if "attention" in job:
+            out["attention"] = split_attention(job["attention"], make_mesh(1, world))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -193,21 +310,35 @@ def run_cli_rank(rank: int, world: int, port: int, argv: list, env: dict, out_di
 
 def run_single(job_path: str, out_dir: str):
     """One process taking the whole batch of a job (no process group): the
-    job's BN case, its step cases and its ``control`` cases, saved as
-    ``single.pt`` under ``out_dir``."""
+    job's step cases, its BN case and its ``control`` cases where it has
+    them, saved as ``single.pt`` under ``out_dir``."""
     _rank_env()
     job = torch.load(job_path, weights_only=False)
-    out = {"bn": bn_forward(job["bn"], None), "cases": run_cases(job["cases"], None),
-           "control": run_cases(job.get("control", []), None)}
+    out = {"cases": run_cases(job["cases"], None)}
+    if "bn" in job:
+        out["bn"] = bn_forward(job["bn"], None)
+    if "control" in job:
+        out["control"] = run_cases(job["control"], None)
     torch.save(out, os.path.join(out_dir, "single.pt"))
 
 
 def start_processes(targets: list) -> list:
-    """Start each ``(target, args)`` in a spawned process; returns them."""
+    """Start each ``(target, args)`` in a spawned process; returns them.
+    Their OpenMP threads sleep while they wait (``OMP_WAIT_POLICY``): the
+    ranks wait on each other in every collective, and spinning threads
+    would take the cores the other ranks and the test's workers need."""
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=args) for target, args in targets]
-    for p in procs:
-        p.start()
+    policy = os.environ.get("OMP_WAIT_POLICY")
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if policy is None:
+            del os.environ["OMP_WAIT_POLICY"]
+        else:
+            os.environ["OMP_WAIT_POLICY"] = policy
     return procs
 
 
