@@ -1633,7 +1633,7 @@ def eval_phase(torch, np):
 
 
 def site_of(shape):
-    """The attention site of a fused call by its q (or dO) shape (B, L, d)."""
+    """The attention site of a fused call by its q shape (B, L, d)."""
     _, length, width = shape
     if length >= 1000:
         return "SA"
@@ -1680,25 +1680,29 @@ def option_schedule(torch, gen, cfg, steps, es=40, device="cuda"):
 
 class SiteCounter:
     """Observation only: wraps FlashAttention's forward and backward to count
-    calls by kernel, site and phase (D phase while D takes gradients)."""
+    calls by kernel, site and phase (D phase while D takes gradients), or,
+    given ``key``, by kernel and ``key(q, k, v)``."""
 
-    def __init__(self, fa):
-        self.fa, self.counts, self.D = fa, {}, None
+    def __init__(self, fa, key=None):
+        self.fa, self.counts, self.D, self.key = fa, {}, None, key
 
     def __enter__(self):
         fa = self.fa
         self.fwd, self.bwd = fa.FlashAttention.forward, fa.FlashAttention.backward
 
-        def seen(kernel, shape):
-            phase = "D" if self.D is not None and self.D.linear0.weight.requires_grad else "G"
-            key = (kernel, site_of(shape), phase)
+        def seen(kernel, q, k, v):
+            if self.key is not None:
+                key = (kernel, self.key(q, k, v))
+            else:
+                phase = "D" if self.D is not None and self.D.linear0.weight.requires_grad else "G"
+                key = (kernel, site_of(q.shape), phase)
             self.counts[key] = self.counts.get(key, 0) + 1
 
         fwd, bwd = self.fwd, self.bwd
         fa.FlashAttention.forward = staticmethod(
-            lambda ctx, q, *a: seen("B1", q.shape) or fwd(ctx, q, *a))
+            lambda ctx, q, k, v, *a: seen("B1", q, k, v) or fwd(ctx, q, k, v, *a))
         fa.FlashAttention.backward = staticmethod(
-            lambda ctx, do: seen("B2", do.shape) or bwd(ctx, do))
+            lambda ctx, do: seen("B2", *ctx.saved_tensors[:3]) or bwd(ctx, do))
         return self
 
     def __exit__(self, *exc):
@@ -1708,6 +1712,11 @@ class SiteCounter:
     def take(self):
         counts, self.counts = self.counts, {}
         return counts
+
+
+def attention_shape(q, k, v):
+    """(B, Lq, Lkv, dk, dv) of an attention call."""
+    return tuple(int(n) for n in (q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
 
 
 def by_site(counts):
@@ -2520,9 +2529,8 @@ def parallel_phase(torch, np):
 # 11b's rank 0 event and draws, against 11b's one-process step on that event
 # (phase 11's bounds: metrics, per-leaf gradient max of G and D, D's median
 # at STEP_GRAD_MEDIAN, G's at PHASE11_G_MEDIAN; the Adam moments mu and
-# sqrt(nu) per leaf as the gradients; every parameter element within twice
-# the learning rate, since a gradient whose sign rounding decides takes
-# Adam's whole first step either way). The replicated leaves must be
+# sqrt(nu) per leaf as the gradients; every parameter element where each
+# side's own moments put it, adam_residual). The replicated leaves must be
 # bit-equal on both ranks, and each rank's bytes of the split leaves half
 # the whole. Launches per rank by shape: B1 at RR_G in both G passes, at
 # RR_D and D SA in D's three passes; B2 at D SA in all three D passes, RR_D
@@ -2533,40 +2541,6 @@ PHASE14_MESH = (1, 2)
 PHASE14_LAUNCHES = {("B1", (1, 40, 40, 64, 64)): 2, ("B1", (2, 40, 40, 128, 128)): 3,
                     ("B1", (40, 3072, 768, 32, 64)): 3, ("B2", (1, 40, 40, 64, 64)): 1,
                     ("B2", (2, 40, 40, 128, 128)): 2, ("B2", (40, 3072, 768, 32, 64)): 3}
-
-
-class ShapeCounter:
-    """Observation only: FlashAttention's forward and backward calls by
-    kernel and shape (B, Lq, Lkv, dk, dv)."""
-
-    def __init__(self, fa):
-        self.fa, self.counts = fa, {}
-
-    def __enter__(self):
-        fa = self.fa
-        self.fwd, self.bwd = fa.FlashAttention.forward, fa.FlashAttention.backward
-        fwd, bwd = self.fwd, self.bwd
-
-        def seen(kernel, shape):
-            key = (kernel, tuple(int(n) for n in shape))
-            self.counts[key] = self.counts.get(key, 0) + 1
-
-        def forward(ctx, q, k, v, *a):
-            seen("B1", (q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
-            return fwd(ctx, q, k, v, *a)
-
-        def backward(ctx, do):
-            q, k, v = ctx.saved_tensors[:3]
-            seen("B2", (q.shape[0], q.shape[1], k.shape[1], q.shape[2], v.shape[2]))
-            return bwd(ctx, do)
-
-        fa.FlashAttention.forward = staticmethod(forward)
-        fa.FlashAttention.backward = staticmethod(backward)
-        return self
-
-    def __exit__(self, *exc):
-        self.fa.FlashAttention.forward = self.fwd
-        self.fa.FlashAttention.backward = self.bwd
 
 
 def phase14_rank(rank, world, init_file, job_path, out_dir):
@@ -2602,7 +2576,7 @@ def phase14_rank(rank, world, init_file, job_path, out_dir):
         x, y = job["x"].cuda(), job["y"].cuda()
         torch.cuda.reset_peak_memory_stats()
         fa.attention_fwd.launches = fa.attention_bwd.launches = 0
-        with ShapeCounter(fa) as shapes:
+        with SiteCounter(fa, attention_shape) as shapes:
             torch.cuda.synchronize()
             t = time.perf_counter()
             m = step(state, x, y)
@@ -2646,6 +2620,36 @@ def per_leaf(np, got, want):
     return {net: (max(v for k, v in errs.items() if k.startswith(net + ".")),
                   float(np.median([v for k, v in errs.items() if k.startswith(net + ".")])))
             for net in ("G", "D")}
+
+
+def adam_residual(np, tp, one):
+    """Per network, the largest ratio over the parameters' elements of
+    |(p_tp - p_one) + lr (d_tp - d_one)| to its bound, f32 rounding of both
+    parameters (4 eps |p| each) plus 1e-5 lr: ``d`` is Adam's direction that
+    each side's own moments give after the first step from fresh moments,
+    mu_hat / (sqrt(nu_hat) + eps). The moments are held per leaf to phase
+    11's bounds, so this holds each parameter to the one process's through
+    its own moments, where the update's sign is the rounding's wherever a
+    gradient element is (element-wise gaps up to 2 lr)."""
+    from ieagan_torch.core.config import DEFAULT_CONFIG as cfg
+    f32 = np.float32
+    out = {}
+    for net in ("G", "D"):
+        lr = float(f32(cfg[f"{net}_lr"]))
+        bc1 = float(f32(1.0) - f32(cfg[f"{net}_B1"]))
+        bc2 = float(f32(1.0) - f32(cfg[f"{net}_B2"]))
+        eps = float(cfg["adam_eps"])
+        worst = 0.0
+        for k, p_one in one["params"].items():
+            if not k.startswith(net + "."):
+                continue
+            d = [s["mu"][k].double().numpy() / bc1
+                 / (np.sqrt(s["nu"][k].double().numpy() / bc2) + eps) for s in (tp, one)]
+            p = [s["params"][k].double().numpy() for s in (tp, one)]
+            bound = 4 * np.finfo(np.float32).eps * (np.abs(p[0]) + np.abs(p[1])) + 1e-5 * lr
+            worst = max(worst, float(np.max(np.abs(p[0] - p[1] + lr * (d[0] - d[1])) / bound)))
+        out[net] = worst
+    return out
 
 
 def tensor_parallel_phase(torch, np, inputs, dp_gap):
@@ -2709,27 +2713,22 @@ def tensor_parallel_phase(torch, np, inputs, dp_gap):
     moments = {m: per_leaf(np, {k: v.sqrt() if m == "nu" else v for k, v in tp[m].items()},
                            {k: v.sqrt() if m == "nu" else v for k, v in one[m].items()})
                for m in ("mu", "nu")}
-    from ieagan_torch.core.config import DEFAULT_CONFIG
-    lr = {net: float(DEFAULT_CONFIG[f"{net}_lr"]) for net in ("G", "D")}
-    param_max = {net: max(float((tp["params"][k] - v).abs().max())
-                          for k, v in one["params"].items() if k.startswith(net + "."))
-                 for net in ("G", "D")}
+    params = adam_residual(np, tp, one)
     print(phase11_line("1x2 ranks vs one process on the event", gap, "14")
           + "; moments per-leaf (max, median): mu " + json.dumps(
               {n: [f"{a:.3e}", f"{b:.3e}"] for n, (a, b) in moments["mu"].items()})
           + ", sqrt(nu) " + json.dumps(
               {n: [f"{a:.3e}", f"{b:.3e}"] for n, (a, b) in moments["nu"].items()})
-          + "; params max abs " + json.dumps({n: f"{v:.3e}" for n, v in param_max.items()})
-          + f" (2 x lr: {json.dumps({n: 2 * v for n, v in lr.items()})}); "
-          f"{len(replicated)} replicated tensors bit-equal on both ranks", flush=True)
+          + "; params, the largest residual over its bound " + json.dumps(
+              {n: f"{v:.3e}" for n, v in params.items()})
+          + f"; {len(replicated)} replicated tensors bit-equal on both ranks", flush=True)
     print("14 against 11b's data-parallel gap (G median, D median): "
           f"{gap['G'][1]:.3e} / {dp_gap['G'][1]:.3e}, {gap['D'][1]:.3e} / {dp_gap['D'][1]:.3e}",
           flush=True)
     moments_ok = all(v[0] < STEP_GRAD_MAX and v[1] < (
         PHASE11_G_MEDIAN if net == "G" else STEP_GRAD_MEDIAN)
         for m in moments.values() for net, v in m.items())
-    if not (phase11_within(gap) and moments_ok
-            and all(param_max[n] <= 2 * lr[n] for n in ("G", "D"))):
+    if not (phase11_within(gap) and moments_ok and all(v <= 1.0 for v in params.values())):
         raise SystemExit("14: the tensor-parallel step disagrees with the single process")
     ranks[0]["gap"] = gap
     return ranks[0]

@@ -11,7 +11,6 @@ import torch.nn.functional as F
 
 from ieagan_torch.kernels.flash_attention import FlashAttention
 from ieagan_torch.ops.spectral import Conv2d, SNConv2d
-from ieagan_torch.parallel.collectives import model_copy
 
 
 def dot_softmax_attention(q, k, v, scale: float = 1.0, fused: bool = False):
@@ -69,16 +68,14 @@ class SelfAttention2d(nn.Module):
         q = self.theta(x).flatten(2).transpose(1, 2)                 # (B, HW, C/8)
         k = F.max_pool2d(self.phi(x), 2).flatten(2).transpose(1, 2)  # (B, HW/4, C/8)
         v = F.max_pool2d(self.g(x), 2).flatten(2).transpose(1, 2)    # (B, HW/4, C/2)
-        split = getattr(self.g, "tp", None)
-        if split is not None and split.paired:
-            # each rank attends with the whole q and k to its channels of v:
-            # their gradients are the sums of the ranks' partial ones
-            q, k = model_copy(q, split.mesh), model_copy(k, split.mesh)
-        o = dot_softmax_attention(q, k, v, scale=1.0, fused=self.fused)
+        o = self._attend(q, k, v)
         # v's channels: all, or this rank's when g and o are a split pair
         # (parallel/tensor.py)
         o = self.o(o.transpose(1, 2).reshape(b, -1, h, w))
         return self.gamma.to(x.dtype) * o + x
+
+    def _attend(self, q, k, v):
+        return dot_softmax_attention(q, k, v, scale=1.0, fused=self.fused)
 
 
 class CBAMAttention(nn.Module):

@@ -16,11 +16,9 @@ space) do not depend on it. Parameters are allocated empty; the owner calls
 ``reset_parameters(generator)`` or loads a state dict.
 
 A layer split over the mesh's model axis (``parallel/tensor.py``) holds a
-block of rows or columns of the (out, fan-in) matrix; its power iteration
-runs over the axis without gathering W: each contraction over the split axis
-sums its partial vector over the ranks, each vector the iteration keeps is
-whole (a split one is gathered), and sigma is the sum of the ranks' partial
-``v W uᵀ``. ``u`` and ``sv`` stay whole and equal on every rank.
+block of rows or columns of the (out, fan-in) matrix and gives the power
+iteration its own products with W (``sn_products``), which run over the
+axis; ``u`` and ``sv`` stay whole and equal on every rank.
 """
 
 from __future__ import annotations
@@ -30,7 +28,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ieagan_torch.ops.remat import recompute_u
-from ieagan_torch.parallel.collectives import model_cat, model_copy, model_reduce, model_sum
 
 
 def _l2normalize(v, eps: float):
@@ -38,41 +35,41 @@ def _l2normalize(v, eps: float):
     return v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
 
 
-def power_iteration(w_mat, us, n_itrs: int, eps: float, split=None):
+class WholeProducts:
+    """The power iteration's three products with W, for a W the process
+    holds whole."""
+
+    @staticmethod
+    def v(u, w):
+        return u @ w
+
+    @staticmethod
+    def u(v, w):
+        return v @ w.T
+
+    @staticmethod
+    def sigma(vs, w_mat, us):
+        return torch.einsum("sk,ok,so->s", vs, w_mat, us)
+
+
+def power_iteration(w_mat, us, n_itrs: int, eps: float, products=WholeProducts):
     """Power iteration(s) with Gram-Schmidt over tracked singular vectors.
 
     w_mat: (out, k); us: (num_svs, out). Returns ``(svs, new_us)``: the
     (num_svs,) singular-value estimates, with gradient through ``w_mat``, and
-    the updated (num_svs, out) vectors, without gradient. With ``split =
-    (axis, mesh)``, ``w_mat`` is this model rank's block of rows (axis 0) or
-    columns (axis 1) of the whole matrix, ``us`` is whole, and every rank of
-    the axis gets the whole matrix's results (module docstring); sigma's
-    gradient reaches each rank's block through the sum over the ranks.
+    the updated (num_svs, out) vectors, without gradient. ``products`` are
+    the products with W (``WholeProducts``, or a split layer's).
     """
     w = w_mat.detach()
-    axis, mesh = split if split is not None else (None, None)
-    if axis is not None:
-        n = w.shape[axis]
-        block = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
     vs = []
     for _ in range(n_itrs):
         new_us, vs = [], []
         for i in range(us.shape[0]):
-            if axis == 0:
-                v = model_sum(us[i][block] @ w, mesh)
-            elif axis == 1:
-                v = model_cat(us[i] @ w, 0, mesh)
-            else:
-                v = us[i] @ w
+            v = products.v(us[i], w)
             for v_prev in vs:  # Gram-Schmidt (reference: layers.py:82-85)
                 v = v - (v @ v_prev) * v_prev / torch.clamp(v_prev @ v_prev, min=eps)
             v = _l2normalize(v, eps)
-            if axis == 0:
-                u = model_cat(v @ w.T, 0, mesh)
-            elif axis == 1:
-                u = model_sum(v[block] @ w.T, mesh)
-            else:
-                u = v @ w.T
+            u = products.u(v, w)
             for u_prev in new_us:
                 u = u - (u @ u_prev) * u_prev / torch.clamp(u_prev @ u_prev, min=eps)
             u = _l2normalize(u, eps)
@@ -81,19 +78,13 @@ def power_iteration(w_mat, us, n_itrs: int, eps: float, split=None):
         us = torch.stack(new_us)
     vs = torch.stack(vs).detach()
     us = us.detach()
-    if axis is None:
-        return torch.einsum("sk,ok,so->s", vs, w_mat, us), us
-    local_vs, local_us = (vs, us[:, block]) if axis == 0 else (vs[:, block], us)
-    partial = torch.einsum("sk,ok,so->s", local_vs, w_mat, local_us)
-    # every rank's sigma sees only its block's gradient: the sum's backward
-    # sums them (model_copy), and the forward sums the partials (model_reduce)
-    return model_reduce(model_copy(partial, mesh), mesh), us
+    return products.sigma(vs, w_mat, us), us
 
 
 class _SpectralNorm(nn.Module):
     """Buffers and power iteration shared by the SN layers."""
 
-    sn_split = None  # (axis, mesh) of a layer split over the model axis
+    sn_products = WholeProducts
 
     def _init_sn(self, out_features: int, num_svs: int, num_itrs: int, eps: float):
         self.num_itrs = num_itrs
@@ -113,7 +104,7 @@ class _SpectralNorm(nn.Module):
         w_mat = self.weight.reshape(self.weight.shape[0], -1)
         u0 = recompute_u(self)
         svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
-                                      self.eps, self.sn_split)
+                                      self.eps, self.sn_products)
         if self.training and u0 is None:
             with torch.no_grad():
                 self.u.copy_(new_us)

@@ -37,7 +37,7 @@ reaching an operator's output is the whole gradient on every rank:
 
 ``all_reduce_sum``'s backward would sum the ranks' whole gradients on the
 model axis and make them M times too large; a sum of partials whose
-gradients are partial too (a split layer's sigma, ``ops/spectral.py``) is
+gradients are partial too (a split layer's sigma, ``parallel/tensor.py``) is
 ``model_reduce(model_copy(x))``.
 """
 
@@ -240,48 +240,21 @@ class _ModelCopy(torch.autograd.Function):
 def model_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """The model axis's slices of ``x`` concatenated along ``dim`` in rank
     order; the backward keeps this rank's slice."""
-    if not model_parallel(mesh):
-        return x
-    if not x.requires_grad:
-        return _cat(x, mesh.n_model, mesh.model_group, dim)
-    return _ModelGather.apply(x, dim, mesh)
+    return _ModelGather.apply(x, dim, mesh) if model_parallel(mesh) else x
 
 
 def model_scatter(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """This model rank's slice of ``x`` along ``dim``; the backward
     all-gathers the slices' gradients."""
-    if not model_parallel(mesh):
-        return x
-    if not x.requires_grad:
-        return _slice(x, mesh.n_model, mesh.model_index, dim)
-    return _ModelScatter.apply(x, dim, mesh)
+    return _ModelScatter.apply(x, dim, mesh) if model_parallel(mesh) else x
 
 
 def model_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of the model axis's partial ``x``; the backward passes the
     gradient through."""
-    if not model_parallel(mesh):
-        return x
-    if not x.requires_grad:
-        return _summed(x, mesh.model_group)
-    return _ModelReduce.apply(x, mesh)
+    return _ModelReduce.apply(x, mesh) if model_parallel(mesh) else x
 
 
 def model_copy(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` itself; the backward sums the model axis's partial gradients."""
-    if not model_parallel(mesh) or not x.requires_grad:
-        return x
-    return _ModelCopy.apply(x, mesh)
-
-
-@torch.no_grad()
-def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``x`` over the model axis, without autograd."""
-    return _summed(x, mesh.model_group) if model_parallel(mesh) else x
-
-
-@torch.no_grad()
-def model_cat(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """The model axis's slices of ``x`` concatenated along ``dim``, without
-    autograd."""
-    return _cat(x, mesh.n_model, mesh.model_group, dim) if model_parallel(mesh) else x
+    return _ModelCopy.apply(x, mesh) if model_parallel(mesh) else x

@@ -32,7 +32,7 @@ import torch
 from ieagan_torch.models.convert import _flax_param_layout
 from ieagan_torch.ops.image_norm import device_event_transform
 from ieagan_torch.parallel import tensor
-from ieagan_torch.parallel.collectives import (broadcast_tensors, model_cat,
+from ieagan_torch.parallel.collectives import (broadcast_tensors, model_gather,
                                                model_parallel)
 from ieagan_torch.parallel.distributed import broadcast_object
 from ieagan_torch.train.step import make_train_step
@@ -112,6 +112,7 @@ def split_state(state, mesh):
                 opt.state[module.weight][opt.moment_names[i]] = tensor.shard(
                     m, split.dim, mesh)
             tensor.split_layer(module, split)
+        tensor.pair_attention(net)
     return state
 
 
@@ -125,10 +126,11 @@ def gather_state(state, mesh):
     for net, opt in _nets(state):
         for _, module in tensor.split_layers(net):
             p, dim = module.weight, module.tp.dim
-            moments = [model_cat(m, dim, mesh) for m in _moments(opt, p)]
+            moments = [model_gather(m, dim, mesh) for m in _moments(opt, p)]
             for i, m in enumerate(moments):
                 opt.state[p][opt.moment_names[i]] = m
-            tensor.unsplit_layer(module, model_cat(p.data, dim, mesh))
+            tensor.unsplit_layer(module, model_gather(p.data, dim, mesh))
+        tensor.pair_attention(net)
     return state
 
 
@@ -156,7 +158,7 @@ def full_tensors(module: torch.nn.Module, tensors: dict, mesh) -> dict:
     if not model_parallel(mesh):
         return dict(tensors)
     dims = {f"{n}.weight": m.tp.dim for n, m in tensor.split_layers(module)}
-    return {k: model_cat(v, dims[k], mesh) if k in dims else v for k, v in tensors.items()}
+    return {k: model_gather(v, dims[k], mesh) if k in dims else v for k, v in tensors.items()}
 
 
 def place_state(state, mesh):

@@ -29,9 +29,18 @@ Each split layer is the port's layer (``ops/spectral.py``) with its class
 swapped in place for a subclass, as ``torch.nn.utils.parametrize`` does:
 names, state-dict keys and ``isinstance`` checks stay, and the layer can be
 swapped back to its plain class holding the full weight
-(``parallel/sharding.py::gather_state``). Spectral norm's power iteration
-runs over the axis (``ops/spectral.py::power_iteration``); ``u`` and ``sv``
-stay whole and replicated.
+(``parallel/sharding.py::gather_state``). SA-GAN's attention whose ``g``/``o``
+pair is split is swapped so too (``pair_attention``): its ``theta`` and
+``phi`` stay whole, and every rank attends with the whole q and k to its
+channels of v, so their gradients are the sums of the ranks' partial ones.
+
+A split SN layer's power iteration (``ops/spectral.py::power_iteration``)
+runs over the axis without gathering W (``_SplitProducts``): each
+contraction over the split axis sums its partial vector over the ranks, each
+vector the iteration keeps is whole (a split one is gathered), and sigma is
+the sum of the ranks' partial ``v W uᵀ``, whose gradient reaches each rank's
+block through the sum of the ranks' partial gradients. ``u`` and ``sv`` stay
+whole and replicated.
 """
 
 from __future__ import annotations
@@ -70,10 +79,8 @@ class _SplitLayer:
         return self._tp
 
     @property
-    def sn_split(self):
-        """``(axis of the (out, fan-in) matrix the axis cuts, mesh)`` for the
-        power iteration; the torch weight's dim is that axis."""
-        return self._tp.dim, self._tp.mesh
+    def sn_products(self):
+        return _SplitProducts(self._tp)
 
     def forward(self, x):
         tp = self._tp
@@ -98,6 +105,35 @@ class _SplitLayer:
         return out + (bias[:, None, None] if conv else bias)
 
 
+class _SplitProducts:
+    """The power iteration's products with this rank's block of rows (the
+    torch weight's dim 0) or columns (dim 1) of the (out, fan-in) matrix."""
+
+    def __init__(self, split: Split):
+        self.axis, self.mesh = split.dim, split.mesh
+
+    def _block(self, n: int) -> slice:
+        return slice(self.mesh.model_index * n, (self.mesh.model_index + 1) * n)
+
+    def v(self, u, w):
+        if self.axis == 0:
+            return model_reduce(u[self._block(w.shape[0])] @ w, self.mesh)
+        return model_gather(u @ w, 0, self.mesh)
+
+    def u(self, v, w):
+        if self.axis == 0:
+            return model_gather(v @ w.T, 0, self.mesh)
+        return model_reduce(v[self._block(w.shape[1])] @ w.T, self.mesh)
+
+    def sigma(self, vs, w_mat, us):
+        if self.axis == 0:
+            us = us[:, self._block(w_mat.shape[0])]
+        else:
+            vs = vs[:, self._block(w_mat.shape[1])]
+        partial = torch.einsum("sk,ok,so->s", vs, w_mat, us)
+        return model_reduce(model_copy(partial, self.mesh), self.mesh)
+
+
 class SplitLinear(_SplitLayer, Linear):
     pass
 
@@ -120,6 +156,14 @@ class SplitSNConv2d(_SplitLayer, SNConv2d):
 
 class SplitSNEmbedding(_SplitLayer, SNEmbedding):
     pass
+
+
+class SplitSelfAttention2d(SelfAttention2d):
+    """SA-GAN's attention with its ``g``/``o`` pair split."""
+
+    def _attend(self, q, k, v):
+        mesh = self.g.tp.mesh
+        return super()._attend(model_copy(q, mesh), model_copy(k, mesh), v)
 
 
 SPLIT_CLASSES = {Linear: SplitLinear, Conv2d: SplitConv2d, Embedding: SplitEmbedding,
@@ -190,6 +234,16 @@ def unsplit_layer(module, full_weight: torch.Tensor) -> None:
     ``full_weight``; it keeps its ``Split`` for ``split_layer``."""
     module.weight.data = full_weight
     module.__class__ = PLAIN_CLASSES[type(module)]
+
+
+def pair_attention(model) -> None:
+    """Make each SA-GAN attention of ``model`` a ``SplitSelfAttention2d``
+    where its ``g``/``o`` pair is split, and plain where it is not, in
+    place."""
+    for m in model.modules():
+        if isinstance(m, SelfAttention2d):
+            paired = isinstance(m.g, _SplitLayer) and m.g.tp.paired
+            m.__class__ = SplitSelfAttention2d if paired else SelfAttention2d
 
 
 def split_layers(model) -> list:

@@ -33,7 +33,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ieagan_torch.parallel.collectives import model_sum
+from ieagan_torch.parallel.collectives import model_reduce
 
 _F32 = np.float32
 ADABELIEF_EPS_ROOT = 1e-16  # optax.adabelief's default
@@ -153,7 +153,7 @@ class OptaxAdam(torch.optim.Optimizer):
                 mesh, ids = model_split
                 split = torch.tensor([id(p) in ids for p in params], device=squares.device)
                 total = (squares[~split].sum()
-                         + model_sum(squares[split].sum().reshape(1), mesh)[0])
+                         + model_reduce(squares[split].sum().reshape(1), mesh)[0])
             norm = torch.sqrt(total)
             keep = norm < self.clip_norm
             grads = [torch.where(keep, g, g / norm * self.clip_norm) for g in grads]

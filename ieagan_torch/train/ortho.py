@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from ieagan_torch.ops.spectral import Embedding, SNEmbedding
-from ieagan_torch.parallel.collectives import model_cat, model_sum
+from ieagan_torch.parallel.collectives import model_gather, model_reduce
 
 
 def _ortho_grad(w_mat, split=None):
@@ -32,14 +32,14 @@ def _ortho_grad(w_mat, split=None):
     rank's block of rows (axis 0) or columns (axis 1) of the whole matrix."""
     axis, mesh = split if split is not None else (None, None)
     if axis == 0:
-        whole = model_cat(w_mat, 0, mesh)
+        whole = model_gather(w_mat, 0, mesh)
         gram = w_mat @ whole.T
         rows = slice(mesh.model_index * w_mat.shape[0], (mesh.model_index + 1) * w_mat.shape[0])
         eye = torch.eye(whole.shape[0], dtype=w_mat.dtype, device=w_mat.device)[rows]
         return 2.0 * ((gram * (1.0 - eye)) @ whole)
     gram = w_mat @ w_mat.T
     if axis == 1:
-        gram = model_sum(gram, mesh)
+        gram = model_reduce(gram, mesh)
     gram = gram * (1.0 - torch.eye(gram.shape[0], dtype=w_mat.dtype, device=w_mat.device))
     return 2.0 * (gram @ w_mat)
 

@@ -20,6 +20,7 @@ from ieagan_torch.kernels import flash_attention as port_kernel
 from ieagan_torch.kernels.flash_attention import attention_fwd, attention_fwd_plain
 from ieagan_torch.ops.attention import dot_softmax_attention
 from tests.test_pallas import CASES
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 SITES = [
     # (B, Lq, Lkv, dk, dv, scale)

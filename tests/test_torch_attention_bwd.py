@@ -25,6 +25,7 @@ from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.attention import dot_softmax_attention
 from tests.helpers import tiny_config
 from tests.test_pallas import CASES
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 SITES = [
     # (B, Lq, Lkv, dk, dv, scale): the train step's sites at a small batch

@@ -54,6 +54,7 @@ from ieagan_torch.train.optim import make_optimizers
 from ieagan_torch.train.step import TrainState, _on, make_train_step
 from tests.helpers import tiny_config
 from tests.test_torch_discriminator import _randomize_params
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_losses import jax_draws
 from tests.test_torch_train_step import _load, _variables
 

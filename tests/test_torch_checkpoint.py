@@ -35,6 +35,7 @@ from ieagan_torch.train.step import init_train_state
 from ieagan_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ieagan_torch.utils.flax_msgpack import msgpack_serialize, read_checkpoint
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 CONFIG = tiny_config(compute_dtype="float32")
 CHECKPOINT = pathlib.Path(__file__).resolve().parent.parent / "artifacts" / "flagship_r4b"

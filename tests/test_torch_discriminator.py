@@ -31,6 +31,7 @@ from ieagan_torch.ops import attention as tattn
 from ieagan_torch.ops import spectral as tsn
 from ieagan_torch.train.step import restore_train_state
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_generator import pallas_interpreter  # noqa: F401 (fixture)
 from tests.test_torch_primitives import carry, f32_array, nchw_to_nhwc, nhwc_to_nchw
 

@@ -52,6 +52,7 @@ from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.train.optim import make_optimizer
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_generator import _jax_forward
 
 CONFIG = tiny_config(G_depth=2, G_attn="16", RRM_prx_G=True, rdof_dim=4,

@@ -30,6 +30,7 @@ from ieagan_torch.deploy import Model, generate, generate_batched, generate_bloc
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.image_norm import generate_postprocess
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_primitives import carry, f32_array
 
 CONFIG = tiny_config(RRM_prx_G=True, rdof_dim=4, use_pallas_attention=True,

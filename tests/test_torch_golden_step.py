@@ -29,6 +29,7 @@ import pytest
 
 from ieagan_torch.train import golden_step
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 CHECKPOINT = "artifacts/flagship_r4b"
 

@@ -37,6 +37,7 @@ from ieagan_torch.models.convert import (discriminator_state_to_flax, optimizer_
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.train.optim import make_lr_schedule, make_optimizer
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 STEPS = 20
 RTOL, ATOL = 2e-6, 3e-8

@@ -53,6 +53,7 @@ from ieagan_torch.ops import spectral as tsn
 from tests.helpers import tiny_config
 from tests.test_torch_discriminator import (_carry_d, _check_spectral, _randomize_params,
                                             _spectral)
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_generator import _randomize, pallas_interpreter  # noqa: F401
 from tests.test_torch_primitives import carry, nchw_to_nhwc, nhwc_to_nchw
 from tests.test_torch_train_step import _load, _variables

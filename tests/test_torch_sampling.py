@@ -18,6 +18,7 @@ from ieagan_torch.utils.sampling import (accumulate_standing_stats, generate_ima
                                          interp_sheet, sample_sheet, sample_y, sample_z,
                                          trunc_trick)
 from tests.helpers import tiny_config
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 
 CFG = tiny_config(compute_dtype="float32")
 

@@ -41,6 +41,7 @@ from ieagan_torch.train.optim import make_optimizers
 from ieagan_torch.train.step import TrainState, make_train_step
 from tests.helpers import tiny_config
 from tests.test_torch_discriminator import _randomize_params
+from tests.test_torch_eval import few_torch_threads  # noqa: F401 (autouse)
 from tests.test_torch_losses import jax_draws
 
 CONFIG = tiny_config(RRM_prx_G=True, rdof_dim=4, diff_aug=True, use_pallas_attention=True,

@@ -17,11 +17,13 @@ import multiprocessing
 import os
 import socket
 import sys
+import threading
 
 import torch
 import torch.distributed as dist
 
 RANK_TIMEOUT_S = 240
+_ENVIRON = threading.Lock()  # start_processes from several threads
 
 
 def _rank_env(threads: int = 2):
@@ -100,8 +102,8 @@ def case_state(case: dict, mesh):
     for module, name in ((G, "G"), (D, "D"), (G_ema, "G_ema")):
         module.load_state_dict(case[name], strict=True)
     G_ema.eval().requires_grad_(False)
-    return split_state(TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg)),
-                       mesh)
+    return split_state(TrainState(G.train(), D.train(), G_ema, *make_optimizers(G, D, cfg),
+                                  compute_dtype=torch.get_default_dtype()), mesh)
 
 
 def local_numels(state) -> dict:
@@ -118,7 +120,45 @@ def local_numels(state) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def float64_compute():
+    """Inside the block tensors are made in float64, and ``Tensor.float()``,
+    with which the port widens a narrower type to at least float32 (batch
+    norm's moments, attention's logits, tanh), keeps a float64 tensor as it
+    is: a case run inside computes in float64 throughout. Two correct
+    programs that sum in different orders then agree to float64 rounding,
+    where in float32 a pre-ReLU value within rounding of zero can take
+    either subgradient."""
+    default, widen = torch.get_default_dtype(), torch.Tensor.float
+    torch.set_default_dtype(torch.float64)
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else widen(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = widen
+        torch.set_default_dtype(default)
+
+
+def _to_float64(item):
+    """A case's floating tensors (in dicts and lists) in float64."""
+    if isinstance(item, dict):
+        return {k: _to_float64(v) for k, v in item.items()}
+    if isinstance(item, (list, tuple)):
+        return type(item)(_to_float64(v) for v in item)
+    if isinstance(item, torch.Tensor) and item.is_floating_point():
+        return item.double()
+    return item
+
+
 def _run_case(case: dict, mesh) -> dict:
+    """One case; with ``float64`` set, in float64 (``float64_compute``)."""
+    if not case.get("float64"):
+        return _run_case_as_given(case, mesh)
+    with float64_compute():
+        return _run_case_as_given(_to_float64(case), mesh)
+
+
+def _run_case_as_given(case: dict, mesh) -> dict:
     from ieagan_torch.parallel.sharding import (full_state, full_tensors, host_local_batch,
                                                 make_sharded_train_step)
 
@@ -329,16 +369,17 @@ def start_processes(targets: list) -> list:
     would take the cores the other ranks and the test's workers need."""
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=args) for target, args in targets]
-    policy = os.environ.get("OMP_WAIT_POLICY")
-    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
-    try:
-        for p in procs:
-            p.start()
-    finally:
-        if policy is None:
-            del os.environ["OMP_WAIT_POLICY"]
-        else:
-            os.environ["OMP_WAIT_POLICY"] = policy
+    with _ENVIRON:
+        policy = os.environ.get("OMP_WAIT_POLICY")
+        os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            if policy is None:
+                del os.environ["OMP_WAIT_POLICY"]
+            else:
+                os.environ["OMP_WAIT_POLICY"] = policy
     return procs
 
 
