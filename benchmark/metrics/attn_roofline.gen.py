@@ -1,0 +1,7 @@
+"""Attention's least time at the configuration's sites over the device time
+of the attention kernels in the traced generator calls, %."""
+from benchmark.harness.readings import attention_roofline
+
+
+def read(run):
+    return attention_roofline(run, "generate")

@@ -1,0 +1,6 @@
+"""Device kernels in the traced window per train step."""
+from benchmark.harness.readings import launches_per_call
+
+
+def read(run):
+    return launches_per_call(run, "train")

@@ -1,0 +1,6 @@
+"""The device memory the run held at its peak, GiB
+(``torch.cuda.max_memory_allocated`` over the run)."""
+
+
+def read(run):
+    return run.memory_peak_bytes / 2 ** 30 if run.memory_peak_bytes else None
