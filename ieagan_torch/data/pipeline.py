@@ -7,7 +7,8 @@ releases the GIL) and a bounded prefetch queue; batches are flattened to
 (events*event_size, H, W, 1). With ``device`` set to a CUDA device, the
 producer thread pins each batch and copies it there on a stream of its own,
 so the upload overlaps the previous step; the consumer's stream waits for
-the copy before the batch is used.
+the copy before the batch is used. Traced, the consumer's wait for the next
+batch is the span ``ieagan.data.wait``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from ieagan_torch.core.spans import span
 
 
 class EventLoader:
@@ -140,7 +143,8 @@ class EventLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("ieagan.data.wait"):
+                    item = q.get()
                 if item is None:
                     if errors:  # a failed decode or upload ends the epoch with its error
                         raise errors[0]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ieagan_torch.core.config import DEFAULT_CONFIG
+from ieagan_torch.core.spans import span
 from ieagan_torch.models.convert import (generator_state_from_flax,
                                          generator_state_from_torch,
                                          generator_state_to_torch)
@@ -123,8 +124,11 @@ class Model:
 def generate_batched(model: Model, events_per_call: int,
                      generator: torch.Generator | None = None) -> torch.Tensor:
     """``events_per_call`` events in one generator call:
-    (events_per_call * event_size, 250, W) ADU images on the model's device."""
-    return model.events(*model.draw(events_per_call, generator))
+    (events_per_call * event_size, 250, W) ADU images on the model's device.
+    Traced, the span ``ieagan.gen.call`` holds the host's issue of the call:
+    the draw, G's forward and the postprocess."""
+    with span("ieagan.gen.call"):
+        return model.events(*model.draw(events_per_call, generator))
 
 
 def generate_block(model: Model, events_per_call: int, chunks: int,

@@ -11,11 +11,11 @@ accumulation are f32, ``o`` takes the input type.
 twin of ``_bwd``: it recomputes ``p = exp(scale * q kᵀ - lse)`` and
 accumulates in f32; the gradients take the input type.
 
-``FlashAttention.apply(q, k, v, scale)`` is the differentiable ``o``: B1
-forward, B2 backward, as ``_flash_attention_3d.defvjp`` joins them in the JAX
-package. ``attention_fwd`` alone cuts the graph (the kernel writes ``o``
-through a pointer), so it raises when grad mode is on and an input requires
-grad.
+``FlashAttention.apply(q, k, v, scale[, span_name])`` is the differentiable
+``o``: B1 forward, B2 backward, as ``_flash_attention_3d.defvjp`` joins them
+in the JAX package. ``attention_fwd`` alone cuts the graph (the kernel
+writes ``o`` through a pointer), so it raises when grad mode is on and an
+input requires grad.
 
 For CUDA tensors each wrapper launches its kernel (``csrc/attention_fwd.cu``,
 ``csrc/attention_bwd.cu``, built by ``kernels/build.py`` at first use) on the
@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from ieagan_torch.core.spans import span
 from ieagan_torch.kernels import build
 
 MAX_HEAD_DIM = 256
@@ -235,13 +236,16 @@ class FlashAttention(torch.autograd.Function):
     backward (the twin of the JAX package's ``_flash_attention_3d`` custom
     VJP). Both run their kernels on CUDA tensors and their plain versions on
     CPU tensors. Once differentiable: a backward with ``create_graph=True``
-    raises, since B2's output carries no gradient."""
+    raises, since B2's output carries no gradient. Traced, the backward is
+    the span ``<span_name>.bwd`` (``span_name``: the forward's span,
+    ``ops/attention.py::attention_site``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
+    def forward(ctx, q, k, v, scale: float, span_name: str = "ieagan.attn"):
         o, lse = attention_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
+        ctx.span_name = span_name
         return o
 
     @staticmethod
@@ -250,6 +254,7 @@ class FlashAttention(torch.autograd.Function):
             raise RuntimeError("FlashAttention's backward (B2) is not differentiable: "
                                "create_graph=True cannot pass through fused attention; "
                                "use the plain attention for higher-order gradients")
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+        with span(ctx.span_name + ".bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None

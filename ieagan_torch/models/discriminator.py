@@ -159,7 +159,7 @@ class Discriminator(nn.Module):
                 self.layer_names.append(name)
             if arch["attention"][arch["resolution"][index]]:
                 attn = image_attention(attn_type, arch["out_channels"][index], conv,
-                                       fused_attention)
+                                       fused_attention, "d_sa")
                 if attn is not None:
                     self.add_module(f"attn_{index}", attn)
                     self.layer_names.append(f"attn_{index}")
@@ -181,14 +181,15 @@ class Discriminator(nn.Module):
             # SN linears inside D's RRM (reference: model.py:788-797)
             self.RR_D = RelationalReasoning(
                 num_layers=1, input_dim=top, num_heads=n_head_D, dim_feedforward=512,
-                linear=linear, fused=fused_attention)
+                linear=linear, fused=fused_attention, site="rr_d")
         self.linear1 = linear(top, hypersphere_dim)
         if RRM_embed:
             self.norm = LayerNorm(hypersphere_dim)
         if RRM_prx_D:
             self.RR_Dproxy = RelationalReasoning(
                 num_layers=1, input_dim=hypersphere_dim, num_heads=n_head_D,
-                dim_feedforward=hypersphere_dim, linear=linear, fused=fused_attention)
+                dim_feedforward=hypersphere_dim, linear=linear, fused=fused_attention,
+                site="rr_dproxy")
         if nonlinear_embed:
             self.linear2 = linear(hypersphere_dim, hypersphere_dim)
 

@@ -46,13 +46,14 @@ def upsample_2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def image_attention(attn_type: str, ch: int, conv, fused: bool):
+def image_attention(attn_type: str, ch: int, conv, fused: bool, site: str):
     """The image attention of ``attn_type`` over ``ch`` channels, built with
     ``conv(cin, cout, ksize, bias=...)``, or None for a type that means no
     attention, as in the JAX package (``ieagan_tpu/models/generator.py:225-238``,
-    ``discriminator.py:187-199``). SA's kernel choice follows ``fused``."""
+    ``discriminator.py:187-199``). SA's kernel choice follows ``fused``, its
+    span's name ``site``."""
     if attn_type == "sa":
-        return SelfAttention2d(ch, fused=fused, conv=conv)
+        return SelfAttention2d(ch, fused=fused, conv=conv, site=site)
     if attn_type == "cbam":
         return CBAMAttention(ch, conv)
     if attn_type == "ila":
@@ -179,7 +180,7 @@ class Generator(nn.Module):
             self.linear_f = linear(shared_dim + rdof_dim, 128)
             self.RR_G = RelationalReasoning(
                 num_layers=1, input_dim=128, num_heads=n_head_G,
-                dim_feedforward=128, linear=Linear, fused=fused_attention)
+                dim_feedforward=128, linear=Linear, fused=fused_attention, site="rr_g")
         self.linear = linear(cond_dim if hier else dim_z,
                              arch["in_channels"][0] * bottom_width ** 2 * H_base)
         self.layer_names = []
@@ -195,7 +196,7 @@ class Generator(nn.Module):
                 self.layer_names.append(name)
             if arch["attention"][arch["resolution"][index]]:
                 attn = image_attention(attn_type, arch["out_channels"][index], conv,
-                                       fused_attention)
+                                       fused_attention, "g_sa")
                 if attn is not None:
                     self.add_module(f"attn_{index}", attn)
                     self.layer_names.append(f"attn_{index}")

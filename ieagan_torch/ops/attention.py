@@ -5,12 +5,39 @@ CBAM and ILA have no fused kernel in either package."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ieagan_torch.core.spans import span
 from ieagan_torch.kernels.flash_attention import FlashAttention
 from ieagan_torch.ops.spectral import Conv2d, SNConv2d
+
+
+# the span of the attention an owner computes (``attention_site``); the fused
+# route names B2's backward after it. A context rather than an argument, so
+# that ``dot_softmax_attention`` keeps the signature that the tools and tests
+# replacing it (``chip_smoke.py``'s f64 attention, the spies) give it.
+_SPAN = contextvars.ContextVar("ieagan_attention_span", default="ieagan.attn")
+
+
+@contextlib.contextmanager
+def attention_site(site: str | None):
+    """Name the attention computed inside: traced, the span
+    ``ieagan.attn.<site>`` (``ieagan.attn`` without a site) holds its
+    forward by either route, and ``ieagan.attn.<site>.bwd`` B2's backward;
+    the plain route's backward is autograd's own. The owners (``ops/rrm.py``,
+    ``SelfAttention2d``) wrap their ``dot_softmax_attention`` call in it."""
+    name = "ieagan.attn" if site is None else f"ieagan.attn.{site}"
+    token = _SPAN.set(name)
+    try:
+        with span(name):
+            yield
+    finally:
+        _SPAN.reset(token)
 
 
 def dot_softmax_attention(q, k, v, scale: float = 1.0, fused: bool = False):
@@ -29,7 +56,7 @@ def dot_softmax_attention(q, k, v, scale: float = 1.0, fused: bool = False):
         lkv, dv = v.shape[-2:]
         o = FlashAttention.apply(q.reshape(-1, lq, dk).contiguous(),
                                  k.reshape(-1, lkv, dk).contiguous(),
-                                 v.reshape(-1, lkv, dv).contiguous(), scale)
+                                 v.reshape(-1, lkv, dv).contiguous(), scale, _SPAN.get())
         return o.reshape(*lead, lq, dv)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
@@ -42,13 +69,16 @@ class SelfAttention2d(nn.Module):
     softmax over the pooled positions WITHOUT 1/sqrt(d) scaling (reference
     quirk, layers.py:293); residual with the learnable scalar ``gamma``
     (initialized to 0). q, k and v are laid out (B, H*W, C) row-major over
-    (h, w), as the JAX package's NHWC reshape gives them."""
+    (h, w), as the JAX package's NHWC reshape gives them. ``site`` names the
+    attention's span (``attention_site``)."""
 
     def __init__(self, ch: int, num_svs: int = 1, num_itrs: int = 1,
-                 eps: float = 1e-12, fused: bool = False, conv=None):
+                 eps: float = 1e-12, fused: bool = False, conv=None,
+                 site: str | None = None):
         super().__init__()
         self.ch = ch
         self.fused = fused
+        self.site = site
         if conv is None:  # ``conv(cin, cout, ksize, bias=...)`` builds the 1x1 convs
             conv = lambda cin, cout, ksize, bias: SNConv2d(
                 cin, cout, ksize, bias=bias, num_svs=num_svs, num_itrs=num_itrs, eps=eps)
@@ -75,7 +105,8 @@ class SelfAttention2d(nn.Module):
         return self.gamma.to(x.dtype) * o + x
 
     def _attend(self, q, k, v):
-        return dot_softmax_attention(q, k, v, scale=1.0, fused=self.fused)
+        with attention_site(self.site):
+            return dot_softmax_attention(q, k, v, scale=1.0, fused=self.fused)
 
 
 class CBAMAttention(nn.Module):

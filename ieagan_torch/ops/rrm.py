@@ -9,7 +9,8 @@ transformer over the intra-event (sensor) axis.
   * RelationalReasoning: encoder blocks + a final LayerNorm.
 
 ``linear(in, out)`` builds the projections: plain Linear in G's proxy RRM
-(reference: model.py:305-313).
+(reference: model.py:305-313). ``site`` names the attention's span
+(``ops/attention.py::attention_site``).
 """
 
 from __future__ import annotations
@@ -19,17 +20,18 @@ from typing import Callable
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ieagan_torch.ops.attention import dot_softmax_attention
+from ieagan_torch.ops.attention import attention_site, dot_softmax_attention
 from ieagan_torch.ops.norm import LayerNorm
 
 
 class MultiheadSelfAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, linear: Callable,
-                 fused: bool = False):
+                 fused: bool = False, site: str | None = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.fused = fused
+        self.site = site
         self.qkv_proj = linear(embed_dim, 3 * embed_dim)
         self.o_proj = linear(embed_dim, embed_dim)
 
@@ -40,16 +42,17 @@ class MultiheadSelfAttention(nn.Module):
         # o_proj are a split pair (parallel/tensor.py)
         qkv = self.qkv_proj(x).reshape(b, s, -1, 3 * head_dim)
         q, k, v = qkv.transpose(1, 2).chunk(3, dim=-1)  # (b, heads, s, hd) each
-        values = dot_softmax_attention(q, k, v, scale=1.0 / float(head_dim) ** 0.5,
-                                       fused=self.fused)
+        with attention_site(self.site):
+            values = dot_softmax_attention(q, k, v, scale=1.0 / float(head_dim) ** 0.5,
+                                           fused=self.fused)
         return self.o_proj(values.transpose(1, 2).reshape(b, s, -1))
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, input_dim: int, num_heads: int, dim_feedforward: int,
-                 linear: Callable, fused: bool = False):
+                 linear: Callable, fused: bool = False, site: str | None = None):
         super().__init__()
-        self.self_attn = MultiheadSelfAttention(input_dim, num_heads, linear, fused)
+        self.self_attn = MultiheadSelfAttention(input_dim, num_heads, linear, fused, site)
         self.norm1 = LayerNorm(input_dim)
         self.norm2 = LayerNorm(input_dim)
         self.linear1 = linear(input_dim, dim_feedforward)
@@ -65,12 +68,13 @@ class RelationalReasoning(nn.Module):
     (reference: RRM.py:112-125)."""
 
     def __init__(self, num_layers: int, input_dim: int, num_heads: int,
-                 dim_feedforward: int, linear: Callable, fused: bool = False):
+                 dim_feedforward: int, linear: Callable, fused: bool = False,
+                 site: str | None = None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", EncoderBlock(
-                input_dim, num_heads, dim_feedforward, linear, fused))
+                input_dim, num_heads, dim_feedforward, linear, fused, site))
         self.norm = LayerNorm(input_dim)
 
     def forward(self, x):

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ieagan_torch.core.spans import span
 from ieagan_torch.ops.remat import recompute_u
 
 
@@ -100,16 +101,17 @@ class _SpectralNorm(nn.Module):
     def normalized_weight(self):
         """W / σ(W). In a recompute segment's backward (``ops/remat.py``)
         the power iteration starts from the ``u`` of the segment's entry and
-        writes nothing back."""
-        w_mat = self.weight.reshape(self.weight.shape[0], -1)
-        u0 = recompute_u(self)
-        svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
-                                      self.eps, self.sn_products)
-        if self.training and u0 is None:
-            with torch.no_grad():
-                self.u.copy_(new_us)
-                self.sv.copy_(svs)
-        return (w_mat / svs[0]).reshape(self.weight.shape)
+        writes nothing back. Traced, the span ``ieagan.sn`` holds it."""
+        with span("ieagan.sn"):
+            w_mat = self.weight.reshape(self.weight.shape[0], -1)
+            u0 = recompute_u(self)
+            svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
+                                          self.eps, self.sn_products)
+            if self.training and u0 is None:
+                with torch.no_grad():
+                    self.u.copy_(new_us)
+                    self.sv.copy_(svs)
+            return (w_mat / svs[0]).reshape(self.weight.shape)
 
 
 class SNLinear(_SpectralNorm):

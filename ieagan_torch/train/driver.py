@@ -10,7 +10,8 @@ path (threaded loader, uploads in its producer thread), the epoch loop with
 ``stop_after`` and a final checkpoint, each checkpoint followed by a fixed-z
 sample grid, a per-class sample sheet and the similarity heatmaps.
 ``trace_dir`` writes a ``torch.profiler`` Chrome trace of steps
-``trace_start`` .. ``trace_start + trace_steps``.
+``trace_start`` .. ``trace_start + trace_steps``, both ends included
+(``trace_steps + 1`` steps), with the port's spans (``core/spans.py``).
 
 The FID test (``run_test``) runs ``ieagan_torch.eval.fid_eval_once`` in a
 subprocess on the checkpoint just saved (``fid_subprocess``, the default;

@@ -22,6 +22,13 @@ same detach points and the same order of updates:
   * EMA over every float tensor of G's state (parameters, BN stats, ``u``,
     ``sv``, the standing counter) with decay 0 until ``ema_start``.
 
+Traced (``core/spans.py``), the step is the span ``ieagan.train.step``,
+holding ``ieagan.train.d_phase`` and ``ieagan.train.g_phase`` (each with its
+``d_forward``/``d_backward`` or ``g_forward``/``g_backward`` and one
+``ieagan.train.update``: zero-fill, all-reduce, ortho-reg, Adam), then
+``ieagan.train.ema`` and ``ieagan.train.wait``, the host blocked on the card
+while the metrics are read.
+
 Options, as the JAX package's step takes them:
 
   * ``split_D=False``: one D pass over ``[fake; real]`` with labels
@@ -104,6 +111,7 @@ import torch
 
 from ieagan_torch import losses
 from ieagan_torch.core.config import DEFAULT_CONFIG
+from ieagan_torch.core.spans import span
 from ieagan_torch.models.discriminator import Discriminator
 from ieagan_torch.models.generator import Generator
 from ieagan_torch.ops.diff_aug import (cr_diff_augment, diff_augment, sample_cr_draws,
@@ -286,6 +294,74 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
         apply_ortho_reg(module, strength, blacklist)
         return (mesh, split) if model_parallel(mesh) else None
 
+    def d_pass(x, y, y_all, mask, generator, compute_dtype):
+        """One accumulation's forward work of the D phase: G's no-grad
+        forward, DiffAugment, D's passes and the losses. Returns ``(d_loss,
+        mets, embed_r_all)``, the last None without Contra."""
+        z, rdof = draw_latents(generator, x, compute_dtype)
+        with torch.no_grad():
+            fake = G(z, y, rdof)
+        fake_in, x_in = fake, x
+        if do_diff_aug:
+            fake_in = diff_augment(fake, draw("aug", generator, fake), policy)
+            if diff_aug_real:
+                x_in = diff_augment(x, draw("aug", generator, x), policy)
+        x_in = x_in.to(compute_dtype)
+        if split_D:  # the fake pass, then the real pass (reference: model.py:985-1010)
+            _, _, score_f = d_forward(fake_in, y)
+            proxy_r, embed_r, score_r = d_forward(x_in, y)
+        else:  # one pass over [fake; real] (reference: model.py:1023-1086)
+            proxy, embed, score = d_forward(torch.cat([fake_in, x_in]), torch.cat([y, y]))
+            nb = fake_in.shape[0]
+            score_f, score_r = score[:nb], score[nb:]
+            proxy_r = None if proxy is None else proxy[nb:]
+            embed_r = None if embed is None else embed[nb:]
+        loss_real, loss_fake = losses.loss_hinge_dis(score_f, score_r)
+        d_loss = loss_real + loss_fake
+        mets = {"D_loss_real": loss_real, "D_loss_fake": loss_fake}
+        embed_r_all = None
+        if contra_on:
+            embed_r_all = gather(embed_r)
+            d_loss = d_loss + contra_lambda * contra(embed_r_all, gather(proxy_r), mask, y_all)
+        if con_reg:  # a third D pass (reference: train_fns.py:57-66)
+            x_aug = cr_diff_augment(x, draw("cr", generator, x)).to(compute_dtype)
+            _, embed_ra, score_ra = d_forward(x_aug, y)
+            consistency = losses.l2_loss(score_r, score_ra)
+            if contra_on:
+                consistency = consistency + losses.l2_loss(embed_r, embed_ra)
+            d_loss = d_loss + cr_lambda * consistency
+        if contra_on and unif_on:
+            u = losses.unif_loss(embed_r_all)
+            d_loss = d_loss + unif_lambda * u
+            mets["unif_loss_d"] = u
+        return d_loss, mets, embed_r_all
+
+    def g_pass(x, y, y_all, mask, embed_real, generator, compute_dtype):
+        """One accumulation's forward work of the G phase: G's forward,
+        DiffAugment, D's pass and the losses. Returns ``(g_loss, mets)``,
+        the loss divided over the accumulations."""
+        z, rdof = draw_latents(generator, x, compute_dtype)
+        fake = G(z, y, rdof)
+        if do_diff_aug:
+            fake = diff_augment(fake, draw("aug", generator, fake), policy)
+        proxy_f, embed_f, score_f = d_forward(fake, y)
+        g_loss = losses.loss_hinge_gen(score_f)
+        mets = {}
+        if contra_on:
+            embed_f = gather(embed_f)
+            g_loss = g_loss + contra_lambda * contra(embed_f, gather(proxy_f), mask, y_all)
+        if contra_on and iea_on:
+            il = losses.iea_loss(embed_f, embed_real)
+            g_loss = g_loss + iea_lambda * il
+            mets["iea_loss"] = il
+            if unif_on:  # nested under IEA_loss (reference: train_fns.py:176-178)
+                ug = losses.unif_loss(embed_f)
+                g_loss = g_loss + unif_lambda * ug
+                mets["unif_loss_g"] = ug
+        g_loss = g_loss / float(num_G_acc)
+        mets["G_loss"] = g_loss
+        return g_loss, mets
+
     def global_means(mets):
         """The ranks' mean of each metric (one all-reduce)."""
         if n_ranks == 1 or not mets:
@@ -297,7 +373,7 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
     def train_step(state: TrainState, x, y, generator: torch.Generator | None = None) -> dict:
         if state.G is not G or state.D is not D:
             raise ValueError("this train step was made for other G and D modules")
-        with global_batch(mesh):
+        with span("ieagan.train.step"), global_batch(mesh):
             return step_body(state, x, y, generator)
 
     def step_body(state, x, y, generator):
@@ -309,94 +385,52 @@ def make_train_step(G: Generator, D: Discriminator, config: dict, steps_per_epoc
         D.train()
 
         # ---------------- D phase ----------------
-        G.requires_grad_(False)
-        D.requires_grad_(True)
-        embed_real = None
-        for _ in range(num_D_steps):
-            state.opt_D.zero_grad(set_to_none=True)
-            for _ in range(num_D_acc):
-                z, rdof = draw_latents(generator, x, compute_dtype)
-                with torch.no_grad():
-                    fake = G(z, y, rdof)
-                fake_in, x_in = fake, x
-                if do_diff_aug:
-                    fake_in = diff_augment(fake, draw("aug", generator, fake), policy)
-                    if diff_aug_real:
-                        x_in = diff_augment(x, draw("aug", generator, x), policy)
-                x_in = x_in.to(compute_dtype)
-                if split_D:  # the fake pass, then the real pass (reference: model.py:985-1010)
-                    _, _, score_f = d_forward(fake_in, y)
-                    proxy_r, embed_r, score_r = d_forward(x_in, y)
-                else:  # one pass over [fake; real] (reference: model.py:1023-1086)
-                    proxy, embed, score = d_forward(torch.cat([fake_in, x_in]), torch.cat([y, y]))
-                    nb = fake_in.shape[0]
-                    score_f, score_r = score[:nb], score[nb:]
-                    proxy_r = None if proxy is None else proxy[nb:]
-                    embed_r = None if embed is None else embed[nb:]
-                loss_real, loss_fake = losses.loss_hinge_dis(score_f, score_r)
-                d_loss = loss_real + loss_fake
-                mets = {"D_loss_real": loss_real, "D_loss_fake": loss_fake}
-                if contra_on:
-                    embed_r_all = gather(embed_r)
-                    d_loss = d_loss + contra_lambda * contra(embed_r_all, gather(proxy_r), mask,
-                                                             y_all)
-                if con_reg:  # a third D pass (reference: train_fns.py:57-66)
-                    x_aug = cr_diff_augment(x, draw("cr", generator, x)).to(compute_dtype)
-                    _, embed_ra, score_ra = d_forward(x_aug, y)
-                    consistency = losses.l2_loss(score_r, score_ra)
-                    if contra_on:
-                        consistency = consistency + losses.l2_loss(embed_r, embed_ra)
-                    d_loss = d_loss + cr_lambda * consistency
-                if contra_on and unif_on:
-                    u = losses.unif_loss(embed_r_all)
-                    d_loss = d_loss + unif_lambda * u
-                    mets["unif_loss_d"] = u
-                (d_loss / float(num_D_acc)).backward()
-                embed_real = embed_r_all.detach() if contra_on else None
-            split = finish_grads(D, d_ortho)
-            if capture_grads:
-                metrics["_grads_D"] = capture(D)
-            state.opt_D.step(d_lr, split)
-            metrics.update(global_means(mets))
+        with span("ieagan.train.d_phase"):
+            G.requires_grad_(False)
+            D.requires_grad_(True)
+            embed_real = None
+            for _ in range(num_D_steps):
+                state.opt_D.zero_grad(set_to_none=True)
+                for _ in range(num_D_acc):
+                    with span("ieagan.train.d_forward"):
+                        d_loss, mets, embed_r_all = d_pass(x, y, y_all, mask, generator,
+                                                           compute_dtype)
+                    with span("ieagan.train.d_backward"):
+                        (d_loss / float(num_D_acc)).backward()
+                    embed_real = embed_r_all.detach() if contra_on else None
+                with span("ieagan.train.update"):
+                    split = finish_grads(D, d_ortho)
+                    if capture_grads:
+                        metrics["_grads_D"] = capture(D)
+                    state.opt_D.step(d_lr, split)
+                metrics.update(global_means(mets))
 
         # ---------------- G phase ----------------
-        D.requires_grad_(False)
-        G.requires_grad_(True)
-        state.opt_G.zero_grad(set_to_none=True)
-        for _ in range(num_G_acc):
-            z, rdof = draw_latents(generator, x, compute_dtype)
-            fake = G(z, y, rdof)
-            if do_diff_aug:
-                fake = diff_augment(fake, draw("aug", generator, fake), policy)
-            proxy_f, embed_f, score_f = d_forward(fake, y)
-            g_loss = losses.loss_hinge_gen(score_f)
-            mets = {}
-            if contra_on:
-                embed_f = gather(embed_f)
-                g_loss = g_loss + contra_lambda * contra(embed_f, gather(proxy_f), mask, y_all)
-            if contra_on and iea_on:
-                il = losses.iea_loss(embed_f, embed_real)
-                g_loss = g_loss + iea_lambda * il
-                mets["iea_loss"] = il
-                if unif_on:  # nested under IEA_loss (reference: train_fns.py:176-178)
-                    ug = losses.unif_loss(embed_f)
-                    g_loss = g_loss + unif_lambda * ug
-                    mets["unif_loss_g"] = ug
-            g_loss = g_loss / float(num_G_acc)
-            mets["G_loss"] = g_loss
-            g_loss.backward()
-        split = finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
-        if capture_grads:
-            metrics["_grads_G"] = capture(G)
-        if not skip_g_update:
-            state.opt_G.step(g_lr, split)
-        metrics.update(global_means(mets))
+        with span("ieagan.train.g_phase"):
+            D.requires_grad_(False)
+            G.requires_grad_(True)
+            state.opt_G.zero_grad(set_to_none=True)
+            for _ in range(num_G_acc):
+                with span("ieagan.train.g_forward"):
+                    g_loss, mets = g_pass(x, y, y_all, mask, embed_real, generator,
+                                          compute_dtype)
+                with span("ieagan.train.g_backward"):
+                    g_loss.backward()
+            with span("ieagan.train.update"):
+                split = finish_grads(G, g_ortho, G_ORTHO_BLACKLIST)
+                if capture_grads:
+                    metrics["_grads_G"] = capture(G)
+                if not skip_g_update:
+                    state.opt_G.step(g_lr, split)
+            metrics.update(global_means(mets))
 
         # ---------------- EMA ----------------
         state.itr += 1
         if ema_on:
-            update_ema(state.G_ema, G, 0.0 if state.itr < ema_start else ema_decay)
-        return {k: v if k.startswith("_") else float(v.detach()) for k, v in metrics.items()}
+            with span("ieagan.train.ema"):
+                update_ema(state.G_ema, G, 0.0 if state.itr < ema_start else ema_decay)
+        with span("ieagan.train.wait"):
+            return {k: v if k.startswith("_") else float(v.detach()) for k, v in metrics.items()}
 
     return train_step
 

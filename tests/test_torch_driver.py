@@ -98,7 +98,7 @@ def test_run_dir_matches_jax(runs):
 def test_port_resumes_its_run(runs, tmp_path):
     """Resume with two epochs and ``stop_after`` 5: the loop continues at
     itr 4 in epoch 1, and the Adam counts continue from 3. The profiler hook
-    traces steps 4 and 5 into a Chrome trace."""
+    traces steps 4 and 5 into a Chrome trace, with the port's spans."""
     root, cfg, *_ = runs
     import shutil
     shutil.copytree(root / "port", tmp_path / "port")
@@ -107,6 +107,9 @@ def test_port_resumes_its_run(runs, tmp_path):
                          trace_steps=1), device="cpu")
     trace = json.loads((tmp_path / "trace" / "trace_itr4.json").read_text())
     assert any(e.get("name", "").startswith("aten::") for e in trace["traceEvents"])
+    steps = [e for e in trace["traceEvents"] if e.get("name") == "ieagan.train.step"
+             and e.get("cat") == "user_annotation"]
+    assert len(steps) == 2
     assert state.itr == 5 and sd["itr"] == 5 and sd["epoch"] == 2
     assert (state.opt_G.count, state.opt_D.count, state.opt_G.sched_count) == (5, 5, 5)
     assert (tmp_path / "port" / "weights" / "G_optim_copy5.msgpack").exists()
