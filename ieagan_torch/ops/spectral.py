@@ -3,7 +3,9 @@
 Semantics of the reference SN (reference: layers.py:89-165), as the JAX
 package keeps them:
   * per-layer left singular vector(s) ``u`` of shape (num_svs, out);
-  * ``num_itrs`` power-iteration step(s) on every forward call, eval included;
+  * ``num_itrs`` power-iteration step(s) on every forward call, eval included
+    (an eval call without grad reuses the W/σ of the last call whose ``weight``
+    and ``u`` it still sees: ``_SpectralNorm.normalized_weight``);
   * Gram-Schmidt across the ``num_svs`` tracked singular values;
   * ``u`` and the logged ``sv`` are written back only in train mode, and
     never by an activation recompute (``ops/remat.py``);
@@ -92,26 +94,65 @@ class _SpectralNorm(nn.Module):
         self.eps = eps
         self.register_buffer("u", torch.empty(num_svs, out_features))
         self.register_buffer("sv", torch.empty(num_svs))
+        # (key, the tensors it was read from, W/σ) of the last eval call
+        self._sn_cache = None
 
     def _reset_sn(self, generator):
         with torch.no_grad():
             self.u.normal_(generator=generator)
             self.sv.fill_(1.0)
 
+    def train(self, mode: bool = True):
+        if mode:
+            self._sn_cache = None
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        self._sn_cache = None
+        return super()._apply(*args, **kwargs)
+
+    def _sn_key(self):
+        """What W/σ depends on: the storage address, in-place version and
+        dtype of ``weight`` and ``u``, and the device and shape of
+        ``weight``; None where one of them is an inference tensor, whose
+        in-place writes no version counts. A write through ``.data`` is not
+        counted either: write under ``no_grad``."""
+        w, u = self.weight, self.u
+        if w.is_inference() or u.is_inference():
+            return None
+        return (w.data_ptr(), w._version, w.dtype, w.device, w.shape,
+                u.data_ptr(), u._version, u.dtype)
+
     def normalized_weight(self):
         """W / σ(W). In a recompute segment's backward (``ops/remat.py``)
         the power iteration starts from the ``u`` of the segment's entry and
-        writes nothing back. Traced, the span ``ieagan.sn`` holds it."""
+        writes nothing back. In eval with grad off (``no_grad``,
+        ``inference_mode``) it writes nothing either, so its result is kept
+        and returned again while ``_sn_key`` reads the same: the same
+        tensor, bit for bit. The entry holds the tensors it was read from,
+        so their storage, and its address, stays theirs until the entry is
+        replaced or dropped (``train()``, ``.to()``). Traced, the span
+        ``ieagan.sn`` holds the power iteration, ``ieagan.sn.cached`` a
+        reuse."""
+        u0 = recompute_u(self)
+        key = None
+        if not self.training and u0 is None and not torch.is_grad_enabled():
+            key = self._sn_key()
+            if key is not None and self._sn_cache is not None and self._sn_cache[0] == key:
+                with span("ieagan.sn.cached"):
+                    return self._sn_cache[2]
         with span("ieagan.sn"):
             w_mat = self.weight.reshape(self.weight.shape[0], -1)
-            u0 = recompute_u(self)
             svs, new_us = power_iteration(w_mat, self.u if u0 is None else u0, self.num_itrs,
                                           self.eps, self.sn_products)
             if self.training and u0 is None:
                 with torch.no_grad():
                     self.u.copy_(new_us)
                     self.sv.copy_(svs)
-            return (w_mat / svs[0]).reshape(self.weight.shape)
+            out = (w_mat / svs[0]).reshape(self.weight.shape)
+            if key is not None:
+                self._sn_cache = (key, (self.weight.detach(), self.u.detach()), out)
+            return out
 
 
 class SNLinear(_SpectralNorm):

@@ -2,7 +2,9 @@
 ``record_function``; under a profiler, one train step's trace holds the
 step's tree, one ``ieagan.sn`` per spectral-norm forward and the attention
 spans of every site the tiny config builds; a generator call is one
-``ieagan.gen.call``, the loader's wait one ``ieagan.data.wait`` a batch."""
+``ieagan.gen.call``, whose SN layers run the power iteration on the first
+call and reuse W/σ (``ieagan.sn.cached``) on the next; the loader's wait is
+one ``ieagan.data.wait`` a batch."""
 
 import numpy as np
 import pytest
@@ -90,16 +92,20 @@ def test_traced_step_holds_the_span_tree():
 @pytest.mark.parametrize("fused", [False, True])
 def test_generator_call_span(fused):
     """``generate_batched`` is one ``ieagan.gen.call`` holding G's SN and
-    attention spans, by either attention route."""
+    attention spans, by either attention route. The first call runs every SN
+    layer's power iteration (``ieagan.sn``); the second reuses every W/σ
+    (``ieagan.sn.cached``): a hit share of 1."""
     model = Model(config=dict(CFG, use_pallas_attention=fused), device="cpu")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        generate_batched(model, 1, torch.Generator().manual_seed(2))
-    names = [e.name for e in prof.events() if e.name.startswith("ieagan.")]
     n_sn = sum(isinstance(m, _SpectralNorm) for m in model.G.modules())
-    assert names.count("ieagan.gen.call") == 1
-    assert names.count("ieagan.sn") == n_sn
-    assert sorted(n for n in names if n.startswith("ieagan.attn")) == [
-        "ieagan.attn.g_sa", "ieagan.attn.rr_g"]
+    for call, (misses, hits) in enumerate([(n_sn, 0), (0, n_sn)]):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            generate_batched(model, 1, torch.Generator().manual_seed(2 + call))
+        names = [e.name for e in prof.events() if e.name.startswith("ieagan.")]
+        assert names.count("ieagan.gen.call") == 1
+        assert (names.count("ieagan.sn"), names.count("ieagan.sn.cached")) == (misses, hits)
+        assert hits / (hits + misses) == call
+        assert sorted(n for n in names if n.startswith("ieagan.attn")) == [
+            "ieagan.attn.g_sa", "ieagan.attn.rr_g"]
 
 
 class _Events:
