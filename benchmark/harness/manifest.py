@@ -1,5 +1,5 @@
-"""The benchmark's data: ``BENCHMARK.json`` at the root of the checkout and
-the files it names by name under ``benchmark/``.
+"""The benchmark's data: ``BENCHMARK.json`` at the root of a checkout and
+the files it names by name under that checkout's ``benchmark/``.
 
   configs/<config>.json      a configuration: ``source``, ``config`` (the
                              keys set over the port's defaults), ``assumed``,
@@ -8,9 +8,17 @@ the files it names by name under ``benchmark/``.
                              ``limits``, ``why``
   traffic/<mix>.json         a traffic mix: ``kind`` (the driver
                              ``traffic/<kind>.py``) and its parameters
+  traffic/<kind>.py          a driver: ``declare(run)`` sets what one call
+                             of the window is (``Run.family``, ``unit``,
+                             ``units_per_call``, ``flops_per_call``,
+                             ``attention_sites``), ``run(run, mode, fault)``
+                             declares, sets up, runs the window and compares
   metrics/<metric>.py        a metric's reader, ``read(run) -> float | None``
 
 A new configuration, cell, mix or metric is a new file and a new entry.
+Everything is read under the root it is given (by default this checkout),
+and a cell's driver and readers under its cell's root, so a copy of the tree
+runs its own files.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]      # benchmark/
 ROOT = HERE.parent                               # the checkout
+
+
+def bench_dir(root: Path = ROOT) -> Path:
+    return Path(root) / HERE.name
 
 
 def load_json(path: Path):
@@ -44,6 +56,7 @@ class Cell:
     traffic: dict
     end_to_end: list = field(default_factory=list)   # manifest entries for this cell
     per_layer: list = field(default_factory=list)
+    root: Path = ROOT                                # the checkout it was read from
 
     @property
     def kind(self) -> str:
@@ -59,6 +72,7 @@ def _applies(metric: dict, cell: str) -> bool:
 
 def cell(name: str, root: Path = ROOT, bench: dict | None = None) -> Cell:
     """The cell ``name`` of the manifest, with its files read."""
+    root = Path(root)
     bench = bench if bench is not None else manifest(root)
     entries = [w for w in bench["workloads"] if w["name"] == name]
     if not entries:
@@ -69,11 +83,11 @@ def cell(name: str, root: Path = ROOT, bench: dict | None = None) -> Cell:
     return Cell(
         name=name, chips=int(w["chips"]), config_name=w["config"],
         config_file=load_json(root / cfg_entry["file"]),
-        workload=load_json(HERE / "workloads" / f"{name}.json"),
+        workload=load_json(bench_dir(root) / "workloads" / f"{name}.json"),
         traffic_name=w["traffic"],
-        traffic=load_json(HERE / "traffic" / f"{w['traffic']}.json"),
+        traffic=load_json(bench_dir(root) / "traffic" / f"{w['traffic']}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
-        per_layer=[m for m in bench["per_layer"] if _applies(m, name)])
+        per_layer=[m for m in bench["per_layer"] if _applies(m, name)], root=root)
 
 
 def load_module(path: Path, name: str):
@@ -84,14 +98,14 @@ def load_module(path: Path, name: str):
     return module
 
 
-def driver(kind: str):
-    return load_module(HERE / "traffic" / f"{kind}.py", f"bench_traffic_{kind}")
+def driver(kind: str, root: Path = ROOT):
+    return load_module(bench_dir(root) / "traffic" / f"{kind}.py", f"bench_traffic_{kind}")
 
 
-def reader(metric: str):
-    return load_module(HERE / "metrics" / f"{metric}.py",
+def reader(metric: str, root: Path = ROOT):
+    return load_module(bench_dir(root) / "metrics" / f"{metric}.py",
                        "bench_metric_" + metric.replace(".", "_").replace("-", "_"))
 
 
-def peaks() -> dict:
-    return load_json(HERE / "work" / "peaks.json")
+def peaks(root: Path = ROOT) -> dict:
+    return load_json(bench_dir(root) / "work" / "peaks.json")

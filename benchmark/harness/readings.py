@@ -1,7 +1,9 @@
 """What the metric readers under ``metrics/`` compute, each reader naming
-one of these for its cell kind. A reader returns None where its run holds
-nothing to read (a cell of another kind, an untraced run, no kernel of the
-kind in the trace)."""
+one of these for a family of calls (``run.family``: ``"generate"``, a
+generator call; ``"train"``, a train step), whichever traffic driver ran
+them. A reader returns None where its run holds nothing to read (a call of
+another family or unit, an untraced run, no kernel of the kind in the
+trace)."""
 
 from __future__ import annotations
 
@@ -11,44 +13,45 @@ from benchmark.harness import manifest
 from benchmark.work import attention
 
 
-def rate(run, kind: str):
-    """Units (events or images) completed in the window over its seconds."""
-    if run.cell.kind != kind or not run.window_s:
+def rate(run, family: str, unit: str):
+    """Units (``run.unit``: events or images) completed in the window over
+    its seconds."""
+    if run.family != family or run.unit != unit or not run.window_s:
         return None
     return run.calls * run.units_per_call / run.window_s
 
 
-def call_percentile_ms(run, kind: str, q: float):
+def call_percentile_ms(run, family: str, q: float):
     """The ``q`` percentile (nearest rank) of the window's call times, ms."""
-    if run.cell.kind != kind or not run.call_seconds:
+    if run.family != family or not run.call_seconds:
         return None
     times = sorted(run.call_seconds)
     return 1e3 * times[max(0, math.ceil(q * len(times)) - 1)]
 
 
-def launches_per_call(run, kind: str):
+def launches_per_call(run, family: str):
     t = run.trace
-    if run.cell.kind != kind or t is None or not t.calls:
+    if run.family != family or t is None or not t.calls:
         return None
     return len(t.kernels) / t.calls
 
 
-def device_idle(run, kind: str):
+def device_idle(run, family: str):
     t = run.trace
-    if run.cell.kind != kind or t is None or not t.window_s:
+    if run.family != family or t is None or not t.window_s:
         return None
     return 100.0 * (1.0 - t.busy_s / t.window_s)
 
 
 def _precision(run):
-    return manifest.peaks()["precisions"][run.cell.workload["precision"]]
+    return manifest.peaks(run.cell.root)["precisions"][run.cell.workload["precision"]]
 
 
-def mfu(run, kind: str):
+def mfu(run, family: str):
     """Model FLOPs of the traced calls over the traced window at the
     published peak of the cell's precision, %."""
     t = run.trace
-    if run.cell.kind != kind or t is None or not t.calls:
+    if run.family != family or t is None or not t.calls:
         return None
     return 100.0 * run.flops_per_call * t.calls / (t.window_s * _precision(run)["flops_per_s"])
 
@@ -60,18 +63,18 @@ ATTENTION_KERNELS = (r"^void (\(anonymous namespace\)::)?"
                      r"|fmha|flash_fwd|flash_bwd|efficient_attention|cutlassF|cutlassB")
 
 
-def attention_roofline(run, kind: str):
-    """Attention's least time at the configuration's sites over the device
-    time of the attention kernels in the traced window, %."""
+def attention_roofline(run, family: str):
+    """Attention's least time at the sites the driver declared for one call
+    (``run.attention_sites``) over the device time of the attention kernels
+    in the traced window, %."""
     t = run.trace
-    if run.cell.kind != kind or t is None or not t.calls:
+    if run.family != family or t is None or not t.calls or not run.attention_sites:
         return None
     seconds, n = t.kernel_seconds(ATTENTION_KERNELS)
     if not n:
         return None
     p = _precision(run)
-    events = run.cell.traffic.get("events_per_call", run.cell.traffic.get("events_per_step"))
-    least = attention.least_seconds(attention.sites(run.config, kind, int(events)),
-                                    p["attention_itemsize"], p["attention_flops_per_s"],
-                                    manifest.peaks()["hbm_bytes_per_s"])
+    least = attention.least_seconds(run.attention_sites, p["attention_itemsize"],
+                                    p["attention_flops_per_s"],
+                                    manifest.peaks(run.cell.root)["hbm_bytes_per_s"])
     return 100.0 * least * t.calls / seconds

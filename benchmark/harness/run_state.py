@@ -36,10 +36,18 @@ class Run:
     device: object = None
     started: float = 0.0            # process start, time.time()
     phases: list = field(default_factory=list)      # [(name, seconds)] of set-up
-    # the measured window (filled by the traffic driver)
-    calls: int = 0                  # calls (generator calls or train steps) completed
-    units_per_call: int = 0         # events per generator call, images per step
+    # what one call of the window is, set by the traffic driver and read by
+    # the readers: its family ("generate": a generator call; "train": a step),
+    # what ``units_per_call`` counts ("events" or "images"), and every
+    # attention of one call, [(site, (B, Lq, Lkv, dk, dv), forwards,
+    # backwards)] as ``work/attention.py::sites`` lists them
+    family: str = ""
+    unit: str = ""
+    units_per_call: int = 0
     flops_per_call: float = 0.0     # model FLOPs of one call (work/model_flops.py)
+    attention_sites: list = field(default_factory=list)
+    # the measured window (filled by the traffic driver)
+    calls: int = 0                  # calls completed
     call_seconds: list = field(default_factory=list)
     window_s: float = 0.0
     setup_s: float = 0.0

@@ -169,9 +169,19 @@ def _host_issue(s: Spans):
     return None if step is None or wait is None else step - wait
 
 
-# the per-layer readings: metric -> (cell kind, reading of a Spans), ms a call
+def _sn_hit_share(s: Spans):
+    """Eval SN passes that returned the kept W/σ (``ieagan.sn.cached``)
+    over those and the power iterations (``ieagan.sn``)."""
+    hits, misses = (s.by_name[n].count if n in s.by_name else 0
+                    for n in ("ieagan.sn.cached", "ieagan.sn"))
+    return hits / (hits + misses) if hits + misses else None
+
+
+# the per-layer readings: metric -> (family of the calls, reading of a
+# Spans); a time is ms a call
 READINGS = {
     "host_issue_ms.gen": ("generate", lambda s: s.host_ms("ieagan.gen.call")),
+    "sn_hit_share.gen": ("generate", _sn_hit_share),
     "sn_ms.gen": ("generate", lambda s: s.host_ms("ieagan.sn")),
     "attn_ms.gen": ("generate", lambda s: s.device_ms(_attn)),
     "host_issue_ms.train": ("train", _host_issue),
@@ -186,20 +196,21 @@ READINGS = {
 
 def read(run, metric: str):
     """``metric``'s reading of ``run`` (``harness.run_state.Run``), or None
-    for a cell of the other kind, an untraced run, or a trace without the
-    spans it reads (``run.trace.spans``, a ``Spans``)."""
-    kind, reading = READINGS[metric]
+    for calls of the other family (``run.family``), an untraced run, or a
+    trace without the spans it reads (``run.trace.spans``, a ``Spans``)."""
+    family, reading = READINGS[metric]
     s = getattr(run.trace, "spans", None)
-    if run.cell.kind != kind or s is None:
+    if run.family != family or s is None:
         return None
     return reading(s)
 
 
-def table(s: Spans) -> list:
+def table(s: Spans, family: str | None = None) -> list:
     """The per-span table's lines: per call, each span's count, host ms,
     self ms, device ms and kernels launched under it, and its shares of
-    the window's device time and kernels; then the readings of the trace's
-    kind (a train step's spans, or a generator call's)."""
+    the window's device time and kernels; then the readings of ``family``,
+    by default the family of the spans found (a train step's, or a generator
+    call's)."""
     per = max(s.calls, 1)
     lines = [f"spans: {s.calls} calls in {s.window_s:.6f} s; a call: device "
              f"{1e3 * s.device_s / per:.6f} ms, {s.kernels / per:.1f} kernels",
@@ -212,12 +223,13 @@ def table(s: Spans) -> list:
             f"{1e3 * sp.self_s / per:>13.6f}{1e3 * sp.device_s / per:>13.6f}"
             f"{sp.launches / per:>10.1f}{100 * sp.device_s / max(s.device_s, 1e-30):>10.3f}"
             f"{100 * sp.launches / max(s.kernels, 1):>10.3f}")
-    kind = ("train" if "ieagan.train.step" in s.by_name
-            else "generate" if "ieagan.gen.call" in s.by_name else None)
-    for metric, (k, reading) in READINGS.items():
-        value = reading(s) if k == kind else None
+    if family is None:
+        family = ("train" if "ieagan.train.step" in s.by_name
+                  else "generate" if "ieagan.gen.call" in s.by_name else None)
+    for metric, (f, reading) in READINGS.items():
+        value = reading(s) if f == family else None
         if value is not None:
-            lines.append(f"{metric} {value:.6f} ms")
+            lines.append(f"{metric} {value:.6f}" + (" ms" if "_ms." in metric else ""))
     return lines
 
 

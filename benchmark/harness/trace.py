@@ -6,7 +6,9 @@ event (kernel, copy, memset) in the window, the window's length, the time
 in which something ran on the device, the device operations that took most
 time, and the idle gaps named by the host operation that was running. The
 window is the span ``bench.window`` that the traffic driver records around
-its traced calls; each call is a span ``bench.call``.
+its traced calls; each call is a span ``bench.call``. The program's own
+spans in the same events are kept beside it, reduced by ``spans.reduce``,
+for the readers of span metrics.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class Trace:
     kernels: list = field(default_factory=list)   # [(name, seconds)] of every kernel
     device_ops: list = field(default_factory=list)
     idle_gaps: list = field(default_factory=list)
+    spans: object = None            # spans.Spans of the same events
 
     def kernel_seconds(self, pattern: str) -> tuple[float, int]:
         """Total seconds and count of the kernels whose name matches."""
@@ -98,10 +101,22 @@ def summarize(events: list, top: int = 10) -> Trace:
                  idle_gaps=[[n, s] for n, s in idle])
 
 
+def chrome_events(prof) -> list:
+    """The ``X`` events of a stopped profiler's Chrome trace, which goes to
+    a temporary file, read and removed."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path, encoding="utf-8") as fp:
+            return [e for e in json.load(fp)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.unlink(path)
+
+
 class Traced:
     """``with Traced() as t: ...`` profiles the block; ``t.trace`` is its
-    ``Trace``. The Chrome trace goes to a temporary file, read and
-    removed on exit."""
+    ``Trace``, with the program's spans in ``t.trace.spans``."""
 
     def __enter__(self):
         import torch
@@ -114,13 +129,8 @@ class Traced:
         self.prof.__exit__(*exc)
         if exc[0] is not None:
             return False
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            self.prof.export_chrome_trace(path)
-            with open(path, encoding="utf-8") as fp:
-                events = [e for e in json.load(fp)["traceEvents"] if e.get("ph") == "X"]
-        finally:
-            os.unlink(path)
+        from benchmark.harness import spans     # which imports this module
+        events = chrome_events(self.prof)
         self.trace = summarize(events)
+        self.trace.spans = spans.reduce(events)
         return False

@@ -1,5 +1,5 @@
-"""Attention's least time at the configuration's sites over the device time
-of the attention kernels in the traced generator calls, %."""
+"""Attention's least time at the sites its driver declared over the device
+time of the attention kernels in the traced generator calls, %."""
 from benchmark.harness.readings import attention_roofline
 
 

@@ -3,4 +3,4 @@ from benchmark.harness.readings import rate
 
 
 def read(run):
-    return rate(run, "train")
+    return rate(run, "train", "images")

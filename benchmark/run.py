@@ -8,10 +8,11 @@ runs one cell of ``BENCHMARK.json`` on the machine it starts on: set-up
 reference that decides ``correct``. The last line of standard output is one
 JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics from the
-device trace), ``device``, with ``--trace 1`` ``breakdown``, and last
-``checks``, each compared number beside its limit. The lines before it (and
-the set-up by phase, the card's name, power limit and clocks) go to
-standard error, whose last lines are the compared numbers.
+device trace and the program's spans), ``device``, with ``--trace 1``
+``breakdown``, and last ``checks``, each compared number beside its limit.
+The lines before it (and the set-up by phase, the card's name, power limit
+and clocks, and on a traced run the per-span table) go to standard error,
+whose last lines are the compared numbers.
 
 Exits non-zero, printing no result, without a CUDA device (or with fewer
 than the cell asks for), and when ``jax``, ``jaxlib``, ``flax``, ``optax``
@@ -91,7 +92,7 @@ def measure(cell, seed: int, seconds: float, traced: bool, device, mode: str = "
         config = dict(DEFAULT_CONFIG, **cell.config_file["config"])
     run = Run(cell=cell, config=config, seed=int(seed), seconds=float(seconds), traced=traced,
               device=device, started=started if started is not None else time.time())
-    manifest.driver(cell.kind).run(run, mode=mode, fault=fault)
+    manifest.driver(cell.kind, cell.root).run(run, mode=mode, fault=fault)
     return run
 
 
@@ -101,7 +102,7 @@ def result(run, device_kind: str, count: int) -> dict:
 
     metrics = {}
     for m in run.cell.metrics(run.traced):
-        value = manifest.reader(m["name"]).read(run)
+        value = manifest.reader(m["name"], run.cell.root).read(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     device = {"platform": "gpu", "kind": device_kind, "count": count,
@@ -149,6 +150,9 @@ def main(argv=None) -> int:
         + f"; setup_s {run.setup_s:.3f}")
     say(f"window: {run.calls} calls in {run.window_s:.3f} s; notes: "
         + json.dumps(run.notes, default=str))
+    if run.trace is not None and run.trace.spans is not None:
+        from benchmark.harness import spans
+        say("\n".join(spans.table(run.trace.spans, run.family)))
 
     found = forbidden_modules()
     if found:

@@ -8,7 +8,8 @@ from pathlib import Path
 
 import pytest
 
-from benchmark.harness import manifest
+from bench_runs import declared
+from benchmark.harness import manifest, spans
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -95,6 +96,22 @@ def test_cell_files_and_metrics(cell):
     assert c.workload["precision"] in manifest.peaks()["precisions"]
     for m in c.end_to_end + c.per_layer:
         assert hasattr(manifest.reader(m["name"]), "read")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_drivers_declare_their_calls(cell):
+    """What the readers key on, as each cell's driver declares it."""
+    r = declared(cell, False)
+    assert (r.family, r.unit) in (("generate", "events"), ("train", "images"))
+    assert r.units_per_call > 0 and r.flops_per_call > 0
+    assert all(len(shape) == 5 for _, shape, _, _ in r.attention_sites)
+
+
+def test_span_metrics_are_span_readings_of_their_cells_family():
+    for m in BENCH["per_layer"]:
+        if m["source"] == "program_span":
+            family = spans.READINGS[m["name"]][0]
+            assert all(declared(c, False).family == family for c in m["workloads"]), m["name"]
 
 
 def test_four_chip_cells_within_their_share():

@@ -10,9 +10,10 @@ from pathlib import Path
 
 import pytest
 
+from bench_runs import declared
 from benchmark import run as bench_run
-from benchmark.harness import manifest, readings, trace
-from benchmark.harness.run_state import Check, Run
+from benchmark.harness import manifest, readings, spans, trace
+from benchmark.harness.run_state import Check
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in manifest.manifest()["workloads"]]
@@ -77,19 +78,28 @@ def test_trace_reduction():
 
 
 def _run_state(cell, traced, **kw):
-    r = Run(cell=manifest.cell(cell), config=dict(manifest.cell(cell).config_file["config"],
-                                                  n_classes=40), seed=1, seconds=1.0,
-            traced=traced)
-    for k, v in kw.items():
-        setattr(r, k, v)
-    return r
+    return declared(cell, traced, dict(manifest.cell(cell).config_file["config"], n_classes=40),
+                    **kw)
+
+
+# the program's spans in each of two calls, of a generator call and of a step
+PROGRAM_SPANS = [{"ph": "X", "cat": "user_annotation", "name": n, "ts": t0 + t, "dur": d}
+                 for t0 in (0, 500_000)
+                 for n, t, d in (("ieagan.gen.call", 0, 300_000), ("ieagan.sn.cached", 10, 10),
+                                 ("ieagan.train.step", 0, 400_000), ("ieagan.sn", 20, 10),
+                                 ("ieagan.train.d_phase", 0, 100_000),
+                                 ("ieagan.train.g_phase", 100_000, 100_000),
+                                 ("ieagan.train.update", 150_000, 10_000),
+                                 ("ieagan.train.wait", 300_000, 100_000))]
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_readers(cell):
     c = manifest.cell(cell)
     events = [("void attention_fwd_kernel<float, 32, 128>(x)", 0, 1e6)]
-    t = trace.summarize(_events(events, [(0, 500_000), (500_000, 500_000)], (0, 1e6)))
+    ev = _events(events, [(0, 500_000), (500_000, 500_000)], (0, 1e6)) + PROGRAM_SPANS
+    t = trace.summarize(ev)
+    t.spans = spans.reduce(ev)
     r = _run_state(cell, True, trace=t, calls=2, units_per_call=4, flops_per_call=1e12,
                    call_seconds=[0.4, 0.6], window_s=1.0, setup_s=12.0,
                    memory_peak_bytes=2 ** 30)

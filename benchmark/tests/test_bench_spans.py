@@ -5,11 +5,11 @@ import json
 
 import pytest
 
+from bench_runs import declared
 from benchmark.harness import manifest, spans, trace
-from benchmark.harness.run_state import Run
 
 CELLS = {w["name"]: w for w in manifest.manifest()["workloads"]}
-KIND = {name: manifest.cell(name).kind for name in CELLS}
+FAMILY = {name: declared(name, False).family for name in CELLS}
 
 
 def _span(name, ts, dur, tid=1):
@@ -101,7 +101,7 @@ def test_driver_trace_without_a_window(tmp_path, capsys):
 
 
 def _run(cell, traced, with_spans=True):
-    r = Run(cell=manifest.cell(cell), config={}, seed=1, seconds=1.0, traced=traced)
+    r = declared(cell, traced)
     if traced:
         r.trace = trace.summarize(train_events())
         if with_spans:
@@ -113,9 +113,9 @@ def _run(cell, traced, with_spans=True):
 
 @pytest.mark.parametrize("metric", sorted(spans.READINGS))
 def test_readers(metric):
-    kind = spans.READINGS[metric][0]
-    mine = [c for c in CELLS if KIND[c] == kind]
-    other = [c for c in CELLS if KIND[c] != kind]
+    family = spans.READINGS[metric][0]
+    mine = [c for c in CELLS if FAMILY[c] == family]
+    other = [c for c in CELLS if FAMILY[c] != family]
     assert mine and other
     value = spans.read(_run(mine[0], True), metric)
     assert value is not None and value >= 0

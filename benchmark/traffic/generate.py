@@ -25,7 +25,7 @@ import numpy as np
 from benchmark.harness import compare, weights
 from benchmark.harness.run_state import Check, subseed
 from benchmark.reference import model as ref
-from benchmark.work import model_flops
+from benchmark.work import attention, model_flops
 
 
 def _draw(cfg, generator, events, device):
@@ -57,6 +57,15 @@ def reference_call(cfg, S, z, rdof, ops):
     return torch.cat(out)
 
 
+def declare(r):
+    """What a call of the cell is: a generator call of ``events_per_call``
+    events, its model FLOPs and its attention sites."""
+    events = int(r.cell.traffic["events_per_call"])
+    r.family, r.unit, r.units_per_call = "generate", "events", events
+    r.flops_per_call = model_flops.generate_call(r.config, events)
+    r.attention_sites = attention.sites(r.config, "generate", events)
+
+
 def run(r, mode: str = "program", fault: str | None = None):
     """Drive the cell into ``r`` (``harness.run_state.Run``). ``mode``
     ``control`` puts the reference at the cell's control precision in the
@@ -65,9 +74,8 @@ def run(r, mode: str = "program", fault: str | None = None):
     from ieagan_torch.deploy.inference import Model, generate_batched
 
     traffic, cfg, dev = r.cell.traffic, r.config, r.device
-    events = int(traffic["events_per_call"])
-    r.units_per_call = events
-    r.flops_per_call = model_flops.generate_call(cfg, events)
+    declare(r)
+    events = r.units_per_call
     r.phase("import")
 
     spec = ref.g_spec(cfg)

@@ -36,7 +36,7 @@ from benchmark.harness import compare, weights
 from benchmark.harness.run_state import Check, subseed
 from benchmark.reference import model as ref
 from benchmark.reference import step as ref_step
-from benchmark.work import model_flops
+from benchmark.work import attention, model_flops
 
 
 class Draws:
@@ -133,6 +133,15 @@ def _params(module):
     return {n: p.detach().clone() for n, p in module.named_parameters()}
 
 
+def declare(r):
+    """What a call of the cell is: a train step of ``events_per_step``
+    events, its model FLOPs and its attention sites."""
+    events = int(r.cell.traffic["events_per_step"])
+    r.family, r.unit, r.units_per_call = "train", "images", events * r.config["n_classes"]
+    r.flops_per_call = model_flops.train_step(r.config, events)
+    r.attention_sites = attention.sites(r.config, "train", events)
+
+
 def run(r, mode: str = "program", fault: str | None = None):
     """Drive the cell into ``r``. ``mode`` ``control`` puts the reference at
     the cell's control precision in the program's place; ``fault`` plants a
@@ -147,10 +156,9 @@ def run(r, mode: str = "program", fault: str | None = None):
     from ieagan_torch.train.step import init_train_state
 
     traffic, cfg, dev = r.cell.traffic, r.config, r.device
+    declare(r)
     events = int(traffic["events_per_step"])
     es = cfg["n_classes"]
-    r.units_per_call = events * es
-    r.flops_per_call = model_flops.train_step(cfg, events)
     checked = int(traffic["checked_steps"])
     r.phase("import")
 
