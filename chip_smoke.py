@@ -17,7 +17,9 @@ Phases, each timed on a line of its own:
    head width 256 and the concat mode's sequences of 80 among them), f32 and
    bf16,
    with times of the kernel, the plain version, ``scaled_dot_product_attention``
-   (a yardstick only; the port never calls it) and the card's bound;
+   (a yardstick only; the port never calls it) and the card's bound; at a
+   site that B1 runs in an instance of its own (G SA over 512 channels, the
+   (64, 256) instance), also the time of the (256, 256) route it replaced;
 3b. the same for the fused attention backward (B2), against its plain version
    and SDPA's backward, at the sites as the train step gives them;
 3c. ``ieagan_torch.kernels.selfcheck.run_check`` in f32 and bf16: forward and
@@ -131,6 +133,14 @@ Phases, each timed on a line of its own:
    rank's split bytes half the whole, B1/B2 launches per rank by shape at
    the rank's share of the heads or channels (phases 3/3b hold those shapes
    against the plain versions), step ms and peak memory per rank.
+15. BigGAN-deep 256 at its published widths (``BIGGAN_DEEP_256``) from a
+   random init with SA's gain at 0.5: ``sample_batched`` of
+   ``BIGGAN_DEEP_IMAGES`` images a call, its shape, range and B1 launches a
+   call (one: the (64, 256) instance at G SA, which phase 3 holds against
+   its plain version), against the plain reference
+   ``references/biggan_deep.py`` from the same state, z and labels, with
+   the reference in bfloat16 as a control that must break the bound; ms a
+   call.
 
 The last lines are the kernel table as JSON, the card as ``nvidia-smi``
 reports it, and ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -180,6 +190,9 @@ SITES = [
     ("RR_G", 1, 40, 40, 64, 64, 0.125),
     ("RR_D", 2, 40, 40, 128, 128, 128 ** -0.5),
     ("D_SA", 40, 3072, 768, 32, 64, 1.0),
+    # BigGAN-deep 256's G self-attention at 64x64 over 512 channels, at the
+    # benchmark's 128 images a call: B1's own (64, 256) instance
+    ("G_SA", 128, 4096, 1024, 64, 256, 1.0),
 ]
 BWD_SITES = [SITES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)]
 TP_SITES = SITES[12:15]
@@ -535,7 +548,12 @@ def worst_ratio(got, want, atol, rtol):
 
 
 def kernel_vs_plain(torch, attention_fwd, attention_fwd_plain):
-    """Phase 3: B1 against its plain version at each site and type."""
+    """Phase 3: B1 against its plain version at each site and type. Where
+    B1's instance is not B2's (``fwd_pair``), ``route_256_ms`` times the
+    (256, 256) instance on the same inputs, q and k zero-padded to 136
+    columns (past 128, 16-byte rows in both types): the route the site took
+    before, reading 72 more columns of q and k from memory."""
+    from ieagan_torch.kernels.flash_attention import fwd_pair, padded_pair
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -562,6 +580,12 @@ def kernel_vs_plain(torch, attention_fwd, attention_fwd_plain):
                     q4, k4, v4, scale=scale)),
             }
             add_bound(row, *fwd_work(b, lq, lkv, dk, dv, q.element_size()), dname)
+            if fwd_pair(dk, dv) != padded_pair(dk, dv):
+                qw, kw = (F.pad(t, (0, 136 - dk)) for t in (q, k))
+                o_w, _ = attention_fwd(qw, kw, v, scale)
+                row["route_256_max_abs_diff_o"] = float((o_w.float() - o.float()).abs().max())
+                row["route_256_ms"] = time_ms(torch, lambda: attention_fwd(qw, kw, v, scale))
+                del qw, kw, o_w
             print("B1 " + json.dumps(row), flush=True)
             if not (o_ok and lse_ok):
                 raise SystemExit(f"B1 disagrees with its plain version at {name} {dname}: "
@@ -2752,6 +2776,17 @@ def tensor_parallel_phase(torch, np, inputs, dp_gap):
 # held to TOOLS_F32_RATIO times the CPU's distance from f64 (max and median
 # per leaf); a control (the f64 gradient of another batch) must break it.
 TOOLS_EVENTS, TOOLS_EVENTS_PER_CALL = 8, 4
+# BigGAN-deep 256 (BigGANdeep.py's G_arch[256]; Brock et al.,
+# arXiv:1809.11096 app. B) over the port's deploy config: G_ch 128, RGB,
+# 1,000 classes, hier, SA at 64x64 over 512 channels, no RRM. Phase 15
+# samples BIGGAN_DEEP_IMAGES a call (a deployment would take 128; phase 3's
+# G_SA row is the attention at that batch).
+BIGGAN_DEEP_256 = dict(G_ch=128, G_depth=2, resolution=256, H_base=1, n_classes=1000,
+                       dim_z=128, shared_dim=128, hier=True, G_shared=True, G_attn="64",
+                       attn_type="sa", output_channels=3, RRM_prx_G=False, rdof_dim=0,
+                       prior_embed=False, BN_eps=1e-5, SN_eps=1e-6,
+                       use_pallas_attention=True)
+BIGGAN_DEEP_IMAGES = 8
 TOOLS_FID_IMAGES = 400
 TOOLS_FID_REL = 1e-6
 TOOLS_FINETUNE = dict(steps=24, batch=4, lr=1e-4)
@@ -3080,6 +3115,66 @@ def tools_phase(torch, np):
     return out
 
 
+def biggan_deep_phase(torch, np):
+    """Phase 15: BigGAN-deep 256 through ``sample_batched`` at the
+    published widths, against the plain reference. Returns B1's launches a
+    call and the median ms of a call."""
+    import ieagan_torch.kernels.flash_attention as fa
+    from ieagan_torch.deploy import Model, sample_batched
+    from references import biggan_deep as ref
+
+    n = BIGGAN_DEEP_IMAGES
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(config=BIGGAN_DEEP_256, device="cuda", seed=14)
+    attn = [name for name in model.G.layer_names if name.startswith("attn")]
+    if attn != ["attn_3"] or model.G.attn_3.ch != 512:
+        raise SystemExit(f"BigGAN-deep: G attention at {attn}, expected attn_3 over 512 channels")
+    with torch.no_grad():
+        model.G.attn_3.gamma.fill_(0.5)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    sample_batched(model, n, gen)        # the first call keeps every W/sigma
+    torch.cuda.synchronize()
+    state = gen.get_state()
+    fa.attention_fwd.launches = 0
+    out = sample_batched(model, n, gen)
+    torch.cuda.synchronize()
+    launches = fa.attention_fwd.launches
+    if launches != 1:
+        raise SystemExit(f"BigGAN-deep: B1 launched {launches} times in one sample_batched call")
+    if tuple(out.shape) != (n, 256, 256, 3) or not bool(torch.isfinite(out).all()) \
+            or float(out.abs().max()) > 1.0:
+        raise SystemExit(f"BigGAN-deep: sample_batched gave {tuple(out.shape)}, "
+                         f"|x| max {float(out.abs().max())}")
+    replay = torch.Generator(device="cuda")
+    replay.set_state(state)
+    z, y = model.draw_images(n, replay)
+    S = model.G.state_dict()
+    with torch.no_grad():
+        err = float((out - ref.generator(model.config, S, z, y)).abs().max())
+        ctl = float((out - ref.generator(model.config, S, z, y, precision="bfloat16"))
+                    .abs().max())
+    print(f"15 BigGAN-deep 256 sample_batched({n}): {tuple(out.shape)}, B1 {launches} launch a "
+          f"call, std {float(out.std()):.3f}; against the plain reference max abs diff "
+          f"{err:.3e}, the reference in bfloat16 {ctl:.3e} (bound {FUSED_VS_PLAIN_ATOL})",
+          flush=True)
+    if not (err <= FUSED_VS_PLAIN_ATOL < ctl):
+        raise SystemExit("BigGAN-deep: the program or the bfloat16 control against the bound")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sample_batched(model, n, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = sorted(times)[len(times) // 2]
+    print(f"15 BigGAN-deep 256 sample_batched({n}): {ms:.2f} ms a call (median of 4, host clock "
+          f"after synchronize), peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    del model, out, S
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
 def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -3176,6 +3271,10 @@ def main():
     tp_rank0 = tensor_parallel_phase(torch, np, tp_inputs, dp_rank0["gap"])
     del tp_inputs
     phase("14 tensor parallel", t0)
+
+    t0 = time.perf_counter()
+    biggan_launches, biggan_ms = biggan_deep_phase(torch, np)
+    phase("15 BigGAN-deep 256", t0)
 
     # The heaviest site on the training path: D's image attention at 40 images.
     pick = lambda rs: next(r for r in rs if r["site"] == "D_SA" and r["shape"][0] == 40
@@ -3295,6 +3394,21 @@ def main():
                 "bf16": {"max_abs_err": max(r16[k] for k in err_keys), "ms": r16["ms"],
                          "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
                          "bound_by": r16["bound_by"], "library_ms": r16["library_ms"]}})
+    # Phase 15's site at a deployment's 128 images: the (64, 256) instance,
+    # beside the (256, 256) route it replaced; launches from one call.
+    r, r16 = (pick_site(rows, "G_SA", [128, 4096, 1024, 64, 256], t)
+              for t in ("float32", "bfloat16"))
+    kernels.append({
+        "name": "attention_fwd (B1), (64, 256) instance, at BigGAN-deep's G attention",
+        "route": "cuda", "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
+        "launches": biggan_launches, "max_abs_err": r["max_abs_err_o"], "ms": r["ms"],
+        "route_256_ms": r["route_256_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "site": "G_SA f32 128x4096x1024x64x256 (phase 15: one launch a sample_batched call)",
+        "bf16": {"max_abs_err": r16["max_abs_err_o"], "ms": r16["ms"],
+                 "route_256_ms": r16["route_256_ms"], "plain_ms": r16["plain_ms"],
+                 "bound_ms": r16["bound_ms"], "bound_by": r16["bound_by"],
+                 "library_ms": r16["library_ms"]}})
     kernels.append({
         "name": "attention_fwd (B1) at PEGAN's G attention", "route": "cuda",
         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
@@ -3329,6 +3443,8 @@ def main():
           f"{tp_rank0['step_ms']:.1f} ms, peak {tp_rank0['peak_gib']:.2f} GiB; gap from one "
           f"process: G median {tp_rank0['gap']['G'][1]:.3e}, D median "
           f"{tp_rank0['gap']['D'][1]:.3e}", flush=True)
+    print(f"phase 15: BigGAN-deep 256 sample_batched({BIGGAN_DEEP_IMAGES}) {biggan_ms:.2f} ms a "
+          f"call, B1 {biggan_launches} launch a call", flush=True)
     print(f"total: {time.perf_counter() - t_all:.2f} s (train step {step_ms:.1f} ms f32, "
           f"peak {peak:.2f} GiB; driver step {driver_ms:.1f} ms bf16, peak "
           f"{driver_peak:.2f} GiB; FID of 2,000 images {ev['fid_s']:.2f} s, Inception "

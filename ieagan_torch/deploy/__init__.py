@@ -1,4 +1,4 @@
 """Generator-only inference (the basf2 deployment path)."""
 
 from ieagan_torch.deploy.inference import (
-    FROZEN_CONFIG, Model, generate, generate_batched, generate_block)
+    FROZEN_CONFIG, Model, generate, generate_batched, generate_block, sample_batched)

@@ -3,7 +3,10 @@
 CONFIG, 1334-1340 Model, 1343-1366 generate).
 
 A frozen flagship config and the exact postprocess contract: 40 latents ->
-(40, 250, 768) ADU images with the -0.26 amplitude threshold. Everything runs
+(40, 250, 768) ADU images with the -0.26 amplitude threshold. Beside it,
+``sample_batched`` is a class-conditional image sampler (a configuration
+without G's RRM, such as BigGAN-deep 256): labels drawn uniformly over the
+classes, [-1, 1] images with no postprocess. Everything runs
 on ``model.device`` (CUDA unless the caller asks for the CPU) in the model's
 dtype (fp32 by default, as the JAX deploy path). Random numbers come from an
 explicit ``torch.Generator`` on that device; the same seed does not give the
@@ -120,6 +123,16 @@ class Model:
         imgs = self.G(z, self.labels(z.shape[0] // self.event_size), rdof)
         return generate_postprocess(imgs.float(), threshold=-0.26)
 
+    def draw_images(self, images: int, generator: torch.Generator | None = None):
+        """``(z, labels)`` for ``images`` class-conditional samples on the
+        model's device: z standard normal, then labels uniform over the
+        ``n_classes`` classes, both from ``generator``."""
+        z = torch.randn((images, self.config["dim_z"]), generator=generator,
+                        device=self.device, dtype=self.dtype)
+        labels = torch.randint(0, int(self.config["n_classes"]), (images,),
+                               generator=generator, device=self.device)
+        return z, labels
+
 
 def generate_batched(model: Model, events_per_call: int,
                      generator: torch.Generator | None = None) -> torch.Tensor:
@@ -129,6 +142,17 @@ def generate_batched(model: Model, events_per_call: int,
     the draw, G's forward and the postprocess."""
     with span("ieagan.gen.call"):
         return model.events(*model.draw(events_per_call, generator))
+
+
+def sample_batched(model: Model, images_per_call: int,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """``images_per_call`` class-conditional images in one generator call:
+    (images_per_call, H, W, C) in [-1, 1] on the model's device, from
+    ``Model.draw_images`` (z, then labels uniform over the classes). The
+    image twin of ``generate_batched``, under the same span
+    ``ieagan.gen.call``: the draw and G's forward, no postprocess."""
+    with span("ieagan.gen.call"), torch.inference_mode():
+        return model.G(*model.draw_images(images_per_call, generator))
 
 
 def generate_block(model: Model, events_per_call: int, chunks: int,

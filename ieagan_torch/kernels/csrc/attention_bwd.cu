@@ -317,8 +317,8 @@ cudaError_t launch(const T* q, const T* k, const T* v, const T* d_o, const float
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                      const void* d_o, const void* lse, void* delta, void* dq, void* dk_out,
-                     void* dv_out, int batch, int lq, int lkv, int dk, int dv, float scale,
-                     int device, cudaStream_t s) {
+                     void* dv_out, int batch, int lq, int lkv, int dk, int dv, int pk, int pv,
+                     float scale, int device, cudaStream_t s) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
@@ -332,8 +332,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(d_o) &&
                    dk * sizeof(T) % 16 == 0 && dv * sizeof(T) % 16 == 0;
-  int pk, pv;
-  padded_pair(dk, dv, pk, pv);
 #define IEAGAN_CASE(DK, DV)                                                                  \
   if (pk == DK && pv == DV)                                                                  \
     return launch<T, DK, DV>(q_, k_, v_, do_, lse_, delta_, static_cast<T*>(dq),            \
@@ -341,12 +339,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                              dk, dv, scale, vec, device, s);
   IEAGAN_ATTENTION_WIDTHS(IEAGAN_CASE)
 #undef IEAGAN_CASE
-  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 256 only
+  return cudaErrorInvalidValue;  // a pair with no instance
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// (pk, pv) is the instance, flash_attention.py::padded_pair(dk, dv).
 // `delta` is f32 scratch of batch * lq elements that the caller allocates.
 // Launches the two kernels (delta, then dK/dV and dQ) on `stream` of `device`
 // without synchronising; returns the cudaError_t of the first launch that
@@ -356,11 +355,11 @@ extern "C" int ieagan_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* o, const void* d_o,
                                     const void* lse, void* delta, void* dq,
                                     void* dk_out, void* dv_out, int batch,
-                                    int lq, int lkv, int dk, int dv,
+                                    int lq, int lkv, int dk, int dv, int pk, int pv,
                                     float scale, int dtype, int device,
                                     void* stream) {
-  if (batch <= 0 || lq <= 0 || lkv <= 0 || dk <= 0 || dv <= 0 || dk > kMaxD ||
-      dv > kMaxD || (lq + kTile - 1) / kTile + (lkv + kTile - 1) / kTile > 65535 ||
+  if (batch <= 0 || lq <= 0 || lkv <= 0 || dk <= 0 || dv <= 0 || dk > pk || dv > pv ||
+      (lq + kTile - 1) / kTile + (lkv + kTile - 1) / kTile > 65535 ||
       (static_cast<long long>(batch) * lq + kWarps - 1) / kWarps > 0x7fffffffLL ||
       device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -369,10 +368,10 @@ extern "C" int ieagan_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     err = dispatch<float>(q, k, v, o, d_o, lse, delta, dq, dk_out, dv_out, batch, lq, lkv, dk,
-                          dv, scale, device, s);
+                          dv, pk, pv, scale, device, s);
   else if (dtype == 1)
     err = dispatch<__nv_bfloat16>(q, k, v, o, d_o, lse, delta, dq, dk_out, dv_out, batch, lq,
-                                  lkv, dk, dv, scale, device, s);
+                                  lkv, dk, dv, pk, pv, scale, device, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -42,6 +42,13 @@
 // Head widths are padded to 32, 64 or 128 (zero columns change no product) and
 // each padded pair has its own instance (IEAGAN_ATTENTION_WIDTHS).
 //
+// (64, 256), B1's own instance (the last case of dispatch): BigGAN-deep's G
+// self-attention at 64x64 over 512 channels (B = images, Lq 4096, Lkv 1024,
+// dk 64, dv 256). Under the (256, 256) instance q·kᵀ ran four times its width
+// in each of o's two column tiles; here it runs at 64, and o is still
+// computed in two column tiles of 128, as below. Its layout is the (64, 128)
+// instance's: two ring stages in f32 and bf16.
+//
 // Width 256 (D's proxy RRM, 4 heads of 256 at L = 40 or 80: ~10 MFLOP, bound
 // by the launch): one (256, 256) instance. A 64 x 256 f32 accumulator would
 // take 128 registers a thread on 4 warps before any score, so o is computed
@@ -212,39 +219,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-                     int lq, int lkv, int dk, int dv, float scale, int device, cudaStream_t s) {
+                     int lq, int lkv, int dk, int dv, int pk, int pv, float scale, int device,
+                     cudaStream_t s) {
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && dk * sizeof(T) % 16 == 0 &&
                    dv * sizeof(T) % 16 == 0;
-  int pk, pv;
-  padded_pair(dk, dv, pk, pv);
 #define IEAGAN_CASE(DK, DV)                                                              \
   if (pk == DK && pv == DV)                                                              \
     return launch<T, DK, DV>(q, k, v, o, lse, batch, lq, lkv, dk, dv, scale, vec, device, s);
   IEAGAN_ATTENTION_WIDTHS(IEAGAN_CASE)
+  IEAGAN_CASE(64, 256)
 #undef IEAGAN_CASE
-  return cudaErrorInvalidValue;  // not reached: the entry admits dk, dv <= 256 only
+  return cudaErrorInvalidValue;  // a pair with no instance
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Launches on `stream` of `device` without synchronising; returns the
-// cudaError_t of the launch (0 on success), or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// (pk, pv) is the instance, flash_attention.py::fwd_pair(dk, dv). Launches on
+// `stream` of `device` without synchronising; returns the cudaError_t of the
+// launch (0 on success), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 extern "C" int ieagan_attention_fwd(const void* q, const void* k, const void* v,
                                     void* o, void* lse, int batch, int lq,
-                                    int lkv, int dk, int dv, float scale,
-                                    int dtype, int device, void* stream) {
-  if (batch <= 0 || lq <= 0 || lkv <= 0 || dk <= 0 || dv <= 0 || dk > kMaxD ||
-      dv > kMaxD || (lq + kTile - 1) / kTile > 65535 || device < 0 || device >= kMaxDevices)
+                                    int lkv, int dk, int dv, int pk, int pv,
+                                    float scale, int dtype, int device, void* stream) {
+  if (batch <= 0 || lq <= 0 || lkv <= 0 || dk <= 0 || dv <= 0 || dk > pk || dv > pv ||
+      (lq + kTile - 1) / kTile > 65535 || device < 0 || device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = dispatch<float>(q, k, v, o, lse, batch, lq, lkv, dk, dv, scale, device, s);
+    err = dispatch<float>(q, k, v, o, lse, batch, lq, lkv, dk, dv, pk, pv, scale, device, s);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, lq, lkv, dk, dv, scale, device, s);
+    err = dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, lq, lkv, dk, dv, pk, pv, scale,
+                                  device, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -48,7 +48,6 @@ constexpr int kStages = 2;  // depth of the cp.async ring
 constexpr int kTwoBlockBytes = (233472 - 2 * 1024) / 2;
 // The most dynamic shared memory a block may take on the H100: 227 KB.
 constexpr int kMaxSmemBytes = 232448;
-constexpr int kMaxD = 256;
 // The widest accumulator a warp keeps per output: a block of a 256-wide
 // instance computes its output in column tiles of 128, one per blockIdx.z,
 // and recomputes the scores for each.
@@ -61,21 +60,13 @@ constexpr float kLn2 = 0.6931471805599453f;
 // to 32, 64 or 128 (zero fill) and the pair (padded dk, padded dv) picks the
 // instance; every such pair is built, so every dk, dv <= 128 has one. A pair
 // with a width past 128 pads both to 256 and takes the one (256, 256)
-// instance (D's proxy RRM: 4 heads of 256).
+// instance (D's proxy RRM: 4 heads of 256). B1 also builds (64, 256)
+// (attention_fwd.cu). The caller picks the pair (flash_attention.py:
+// padded_pair for B2, fwd_pair for B1) and passes it in; an entry refuses a
+// pair it has no instance of, or one narrower than the widths.
 #define IEAGAN_ATTENTION_WIDTHS(X)                                                          \
   X(32, 32) X(32, 64) X(32, 128) X(64, 32) X(64, 64) X(64, 128) X(128, 32) X(128, 64) X(128, 128) \
   X(256, 256)
-
-__host__ __device__ constexpr int padded_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
-}
-
-// The padded pair of (dk, dv): both 256 if either is past 128.
-__host__ __device__ inline void padded_pair(int dk, int dv, int& pk, int& pv) {
-  pk = padded_width(dk);
-  pv = padded_width(dv);
-  if (pk > kMaxCols || pv > kMaxCols) pk = pv = kMaxD;
-}
 
 // The output column tile of width d: the width itself up to 128, else 128.
 __host__ __device__ constexpr int col_tile(int d) { return d > kMaxCols ? kMaxCols : d; }

@@ -37,7 +37,10 @@ MAX_HEAD_DIM = 256
 # change no product). Every pair of padded widths up to 128 has an instance of
 # its own (``IEAGAN_ATTENTION_WIDTHS`` in ``csrc/mma_tile.cuh``); a pair with a
 # width past 128 pads both widths to 256 and takes the one (256, 256)
-# instance (D's proxy RRM). So any dk, dv <= 256 runs.
+# instance (D's proxy RRM). So any dk, dv <= 256 runs. B1 alone also has a
+# (64, 256) instance (``fwd_pair``): SA-GAN attention over 512 channels
+# (dk 64, dv 256) without padding q·kᵀ to 256 wide. The pair is chosen here
+# and passed to the kernels, which keep no rule of their own.
 PADDED_WIDTHS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB: ctypes.CDLL | None = None
@@ -91,7 +94,7 @@ def _kernel_library() -> ctypes.CDLL:
     """B1's library."""
     global _LIB
     if _LIB is None:
-        _LIB = _library("attention_fwd", "ieagan_attention_fwd", 5, 5)
+        _LIB = _library("attention_fwd", "ieagan_attention_fwd", 5, 7)
     return _LIB
 
 
@@ -99,7 +102,7 @@ def _bwd_kernel_library() -> ctypes.CDLL:
     """B2's library."""
     global _LIB_BWD
     if _LIB_BWD is None:
-        _LIB_BWD = _library("attention_bwd", "ieagan_attention_bwd", 10, 5)
+        _LIB_BWD = _library("attention_bwd", "ieagan_attention_bwd", 10, 7)
     return _LIB_BWD
 
 
@@ -113,9 +116,17 @@ def padded_width(d: int) -> int:
 
 def padded_pair(dk: int, dv: int) -> tuple[int, int]:
     """The kernel instance ``(padded dk, padded dv)`` that a pair of head
-    widths runs in: both 256 if either is past 128."""
+    widths runs in under B2: both 256 if either is past 128."""
     pair = padded_width(dk), padded_width(dv)
     return (MAX_HEAD_DIM, MAX_HEAD_DIM) if max(pair) > 128 else pair
+
+
+def fwd_pair(dk: int, dv: int) -> tuple[int, int]:
+    """The instance that B1 runs a pair of head widths in: (64, 256) for
+    dk <= 64 and 128 < dv <= 256, else ``padded_pair``'s."""
+    if padded_width(dk) <= 64 and padded_width(dv) == MAX_HEAD_DIM:
+        return 64, MAX_HEAD_DIM
+    return padded_pair(dk, dv)
 
 
 def _check(q, k, v):
@@ -155,7 +166,7 @@ def attention_fwd(q, k, v, scale: float):
     """B1 forward: ``(o (B, Lq, dv) in q's type, lse (B, Lq) f32)``.
 
     CUDA tensors go to the kernel, which takes f32 or bf16, ``dk, dv <= 256``
-    (padded as ``padded_pair`` says) and contiguous tensors, and raises on
+    (padded as ``fwd_pair`` says) and contiguous tensors, and raises on
     anything else. CPU tensors go to ``attention_fwd_plain``. ``attention_fwd.launches`` counts kernel
     launches. It raises when grad mode is on and an input requires grad:
     the kernel's output carries no gradient, so differentiate through
@@ -175,7 +186,7 @@ def attention_fwd(q, k, v, scale: float):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.ieagan_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, lq, lkv, dk, dv, float(scale), _DTYPE_CODES[q.dtype],
+        b, lq, lkv, dk, dv, *fwd_pair(dk, dv), float(scale), _DTYPE_CODES[q.dtype],
         q.device.index, stream)
     if err != 0:
         raise RuntimeError("attention kernel launch failed: "
@@ -219,8 +230,8 @@ def attention_bwd(q, k, v, o, lse, do, scale: float):
     err = lib.ieagan_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-        dvv.data_ptr(), b, lq, lkv, dk, dv, float(scale), _DTYPE_CODES[q.dtype],
-        q.device.index, stream)
+        dvv.data_ptr(), b, lq, lkv, dk, dv, *padded_pair(dk, dv), float(scale),
+        _DTYPE_CODES[q.dtype], q.device.index, stream)
     if err != 0:
         raise RuntimeError("attention backward kernel launch failed: "
                            + lib.ieagan_cuda_error_string(err).decode())

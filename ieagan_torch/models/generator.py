@@ -1,8 +1,9 @@
 """Generator: BigGAN-deep stack with RRM over class-proxy embeddings (twin of
 ``ieagan_tpu/models/generator.py``; reference: model.py:139-487).
 
-NCHW inside; the public ``forward`` returns (B, H, W, 1) as the JAX package
-does. The per-image random degrees of freedom ``rdof`` are an explicit input
+NCHW inside; the public ``forward`` returns (B, H, W, C) as the JAX package
+does, C = ``output_channels`` (1, the sensor images, unless a configuration
+sets it: BigGAN-deep's RGB head takes 3). The per-image random degrees of freedom ``rdof`` are an explicit input
 (the JAX model draws them inside, ``generator.py:181``), so callers control
 every random number.
 
@@ -13,7 +14,7 @@ Forward:
   z = [y, z]; cond = z                              (B, 256)   [hier]
   h = linear(z) -> (B, 16ch, 4, 4*H_base)           NCHW, as the reference
   stages x depth deep-bottleneck GBlocks (ccbn conditioned on cond)
-  out = tanh(conv(relu(bn(h)))) in f32              (B, 256, 768, 1)
+  out = tanh(conv(relu(bn(h)))) in f32              (B, 256, 768, C)
 """
 
 from __future__ import annotations
@@ -118,7 +119,10 @@ class Generator(nn.Module):
         ``update_stats``; the port builds what that code describes;
       * ``hier=False``: z alone goes into ``linear``, and every ccbn is
         conditioned on the class embedding alone;
-      * ``norm_style`` goes to every ccbn (``ops/norm.py``).
+      * ``norm_style`` goes to every ccbn (``ops/norm.py``);
+      * ``output_channels``: the image channels of ``output_conv`` (1 by
+        default; no key of ``core/config.py``, so only a configuration that
+        sets it, such as BigGAN-deep 256's RGB, changes it).
 
     ``remat`` (``remat_G`` over ``remat``, ``ops/remat.py::remat_mode``)
     recomputes activations in the backward, as the JAX generator's
@@ -140,7 +144,8 @@ class Generator(nn.Module):
                  attn_type: str = "sa", RRM_prx_G: bool = True,
                  normalized_proxy_G: bool = False, prior_embed: bool = False,
                  n_head_G: int = 2, G_param: str = "SN", norm_style: str = "bn",
-                 event_size: int = 40, fused_attention: bool = False, remat=False):
+                 event_size: int = 40, fused_attention: bool = False, remat=False,
+                 output_channels: int = 1):
         super().__init__()
         arch = g_arch(G_ch, G_attn)[resolution]
         self.arch = arch
@@ -201,7 +206,7 @@ class Generator(nn.Module):
                     self.add_module(f"attn_{index}", attn)
                     self.layer_names.append(f"attn_{index}")
         self.output_bn = BatchNorm(arch["out_channels"][-1], eps=1e-5)
-        self.output_conv = conv(arch["out_channels"][-1], 1, 3)
+        self.output_conv = conv(arch["out_channels"][-1], output_channels, 3)
         # the tail starts at the last block (JAX's _tail); remat makes a
         # segment of each block before it from stage ``first`` on
         last = len(arch["out_channels"]) - 1
@@ -234,7 +239,7 @@ class Generator(nn.Module):
         """z: (B, dim_z); y: (B,) int labels; rdof: (B, rdof_dim), required
         when RRM_prx_G. B = events * event_size. Computes in z's dtype with
         f32 parameters, normalization statistics and tanh, as the JAX
-        package does. Returns (B, H, W, 1) in [-1, 1]."""
+        package does. Returns (B, H, W, output_channels) in [-1, 1]."""
         y_emb = self.shared(y).to(z.dtype)
         if self.prior_embed:
             feat = self.linear0(prior_features(y, self.n_classes).to(y_emb.dtype))
